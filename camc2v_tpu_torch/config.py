@@ -3,17 +3,40 @@
 Same field names and defaults as the JAX package's dataclasses
 (`camc2v_tpu/nn/unet3d.py::UNetConfig`, `nn/vae.py::VAEConfig`,
 `nn/clip.py::CLIPTextConfig`/`CLIPVisionConfig`,
-`models/dynamicrafter.py::ResamplerConfig`/`DynamiCrafterConfig`), defined
+`models/dynamicrafter.py::ResamplerConfig`/`DynamiCrafterConfig`,
+`nn/epipolar.py::EpipolarConfig`, `camera/pose_encoder.py::PoseEncoderConfig`,
+`models/camera_base.py::CameraControlConfig`/`CamI2VConfig`,
+`models/camcontexti2v.py::AdaptorConfig`/`CamContextI2VConfig`), defined
 here again because the port may not import the JAX package. UNetConfig omits
-the camera fields (`use_camera`, `epipolar`, `add_type`, `camera_mode`,
-`pose_dim`) and the JAX remat knobs (`remat`, `remat_policy`): the port has
-no camera branch yet and runs inference only.
+the JAX remat knobs (`remat`, `remat_policy`): the port runs inference only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class EpipolarConfig:
+    """Epipolar attention (hashable). Only the plain `dist < thresh` band is
+    ported; the other mask variants raise where a module is built."""
+
+    origin_h: int = 256
+    origin_w: int = 256
+    is_3d_full_attn: bool = False
+    num_register_tokens: int = 0
+    compression_factor: int = 1
+    only_on_cond_frame: bool = False
+    attention_resolution: tuple[int, ...] = (8, 4, 2, 1)
+    apply_epipolar_soft_mask: bool = False
+    soft_mask_temperature: float = 1.0
+    epipolar_hybrid_attention: bool = False
+    epipolar_hybrid_attention_v2: bool = False
+    only_self_pixel_on_current_frame: bool = False
+    current_frame_as_register_token: bool = False
+    add_small_perturbation_on_zero_T: bool = False
+    pluker_add_type: str = "add_to_pre_x_only"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +69,12 @@ class UNetConfig:
     fs_condition: bool = True
     text_context_len: int = 77
     img_tokens_per_frame: int = 16
+    # camera branch of the temporal blocks (CamI2V / CamContextI2V)
+    use_camera: bool = False
+    epipolar: Optional[EpipolarConfig] = None
+    add_type: str = "add_to_main_branch"
+    camera_mode: str = "plucker_epipolar"
+    pose_dim: int = 12
 
     def heads_for(self, ch: int) -> tuple[int, int]:
         if self.num_head_channels == -1:
@@ -136,3 +165,61 @@ class DynamiCrafterConfig:
     @property
     def latent_channels(self) -> int:
         return self.unet.out_channels
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseEncoderConfig:
+    downscale_factor: int = 8
+    channels: tuple[int, ...] = (320, 640, 1280, 1280)
+    nums_rb: int = 2
+    cin: int = 384  # 6 plucker channels * 8 * 8
+    ksize: int = 1
+    sk: bool = True
+    use_conv: bool = False
+    compression_factor: int = 1
+    temporal_attention_nhead: int = 8
+    temporal_position_encoding: bool = True
+    temporal_position_encoding_max_len: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraControlConfig(DynamiCrafterConfig):
+    pose_encoder: Optional[PoseEncoderConfig] = None
+    normalize_T0: bool = False
+    camera_embedding: str = "plucker"  # or "ray"
+
+
+@dataclasses.dataclass(frozen=True)
+class CamI2VConfig(CameraControlConfig):
+    epipolar: Optional[EpipolarConfig] = EpipolarConfig()
+    add_type: str = "add_into_temporal_attn"
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptorConfig:
+    query_dim: int = 512
+    num_queries: int = 1024
+    video_length: int = 16
+    embedding_dim: int = 4
+    output_dim: int = 4
+    depth: int = 12
+    dim_head: int = 64
+    heads: int = 8
+    ff_mult: int = 4
+    num_register_tokens: int = 2
+    use_mask: bool = True
+    timestep_embedding_type: str = "sinusoidal_embedded"
+    timestep_embedding_dim: int = 32
+    use_plucker_embedding: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class CamContextI2VConfig(CamI2VConfig):
+    multi_cond_strategy: Optional[str] = "token_concat_latent_epipolar"
+    adaptor: AdaptorConfig = AdaptorConfig()
+    use_cross_normalization: bool = False
+    cross_normalization_mode: str = "spatio_temporal"  # or "token"
+    use_zero_conv_latent_input: bool = True
+    use_semantic_branch: bool = True
+    epipolar_mask_freeze_steps: Optional[int] = None
+    add_type: str = "add_to_main_branch"

@@ -133,6 +133,18 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
     return emb
 
 
+def sinusoidal_positional_encoding(length: int, dim: int) -> np.ndarray:
+    """Interleaved sin/cos table (length, dim) f32: even dims sin, odd dims
+    cos (the pose encoder's PositionalEncoding, reference
+    model/modules/camera_pose_encoder.py:81-99)."""
+    position = np.arange(length)[:, None].astype(np.float64)
+    div_term = np.exp(np.arange(0, dim, 2).astype(np.float64) * (-math.log(10000.0) / dim))
+    pe = np.zeros((length, dim), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
+
+
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, guidance_rescale: float):
     """Guidance-rescale trick (arXiv 2305.08891 §3.4)."""
     axes = tuple(range(1, noise_pred_text.dim()))

@@ -7,12 +7,14 @@ the Resampler; methods mirror the JAX assembly's generation path:
 
 Batch contract (channels-last, as in the JAX package):
   video (B, T, H, W, 3) float in [-1, 1]; caption_tokens (B, 77) int CLIP BPE
-  ids; frame_stride (B,) int.
+  ids; frame_stride (B,) int. Camera models (`models/camera_base.py`) add
+  their keys and fill the `camera_condition` hook, whose payload rides
+  cond["camera"] into every UNet call.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 from torch import nn
@@ -83,7 +85,8 @@ class DynamiCrafter(nn.Module):
         return torch.tensor(empty_prompt_tokens(ct.vocab_size, ct.context_length), dtype=torch.long,
                             device=device)[None]
 
-    def prepare_batch(self, batch: dict, *, prefetch_uncond: bool = False):
+    def prepare_batch(self, batch: dict, *, prefetch_uncond: bool = False,
+                      perturb_noise: Optional[torch.Tensor] = None):
         """Generation conditioning (`prepare_batch` with need_full_z=False,
         cond frame 0, no CFG dropout): only the conditioning frame is
         VAE-encoded (posterior mode). Returns (latent shape, cond)."""
@@ -107,7 +110,17 @@ class DynamiCrafter(nn.Module):
             img_emb = self.embed_images(img)
         cond["c_concat"] = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
         cond["c_crossattn"] = torch.cat([cond_emb, img_emb], dim=1)
+        cond_frame_index = torch.zeros(b, dtype=torch.long, device=video.device)
+        camera = self.camera_condition(batch, cond_frame_index, perturb_noise=perturb_noise)
+        if camera is not None:
+            cond["camera"] = camera
         return (b, t, *z_cond.shape[1:]), cond
+
+    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *,
+                         perturb_noise: Optional[torch.Tensor] = None) -> Optional[dict]:
+        """Hook of the camera models (reference model/base.py:475-476): the
+        UNet's camera payload, or None."""
+        return None
 
     def build_uncond(self, cond: dict, batch_size: int, image_hw) -> dict:
         """uncond_type 'empty_seq': empty prompt + zero image."""
@@ -131,17 +144,21 @@ class DynamiCrafter(nn.Module):
     # -------------------------------------------------------------- denoise
     def apply_model(self, x_noisy, t, cond: dict, fs=None):
         xc = torch.cat([x_noisy, cond["c_concat"]], dim=-1)
-        return self.unet(xc, t, cond["c_crossattn"], fs, context_mask=cond.get("c_crossattn_mask"))
+        return self.unet(xc, t, cond["c_crossattn"], fs, cond.get("camera"),
+                         context_mask=cond.get("c_crossattn_mask"))
 
     def build_guided_fn(self, cond: dict, uc: Optional[dict], fs, *, guidance_scale: float = 1.0,
                         guidance_rescale: float = 0.0):
         """Guided denoiser closure. When the cond and uncond contexts have one
-        shape, both run as ONE batch-2B UNet call."""
+        shape, both run as ONE batch-2B UNet call, the camera payload stacked
+        with them (the uncond shares cond's geometry); otherwise (CamContextI2V's
+        multi-frame context against a single-frame uncond) two calls."""
         if uc is None or guidance_scale == 1.0:
             return lambda x, t: self.apply_model(x, t, cond, fs)
         b = cond["c_concat"].shape[0]
         if uc["c_crossattn"].shape == cond["c_crossattn"].shape:
-            stacked = {k: torch.cat([cond[k], uc[k]]) for k in ("c_concat", "c_crossattn")}
+            keys = ("c_concat", "c_crossattn") + (("camera",) if "camera" in cond else ())
+            stacked = {k: _stack(cond[k], uc[k]) for k in keys}
             fs2 = None if fs is None else torch.cat([fs, fs])
 
             def eps_pair(x, t):
@@ -165,12 +182,16 @@ class DynamiCrafter(nn.Module):
     def sample(self, batch: dict, *, generator: Optional[torch.Generator] = None, ddim_steps: int = 25,
                ddim_eta: float = 1.0, guidance_scale: float = 7.5, guidance_rescale: float = 0.7,
                timestep_spacing: str = "uniform_trailing", decode: bool = True,
-               x_T: Optional[torch.Tensor] = None, step_noise: Optional[Sequence[torch.Tensor]] = None):
+               camera_cfg: float = 1.0, x_T: Optional[torch.Tensor] = None,
+               step_noise: Optional[Sequence[torch.Tensor]] = None, perturb_noise: Optional[torch.Tensor] = None):
         """DDIM CFG sampling -> decoded video (B, T, H, W, 3).
 
         x_T / step_noise: optional initial latents and per-step standard-normal
-        draws in place of `generator` (test hooks)."""
-        shape, cond = self.prepare_batch(batch, prefetch_uncond=guidance_scale != 1.0)
+        draws in place of `generator`; perturb_noise: the camera models'
+        zero-translation perturbation draws (test hooks)."""
+        if camera_cfg != 1.0:
+            raise NotImplementedError("sample: camera_cfg != 1.0 (the camera-free third pass) is not ported")
+        shape, cond = self.prepare_batch(batch, prefetch_uncond=guidance_scale != 1.0, perturb_noise=perturb_noise)
         b = shape[0]
         fs = self.get_fs(batch)
         uc = self.build_uncond(cond, b, batch["video"].shape[2:4]) if guidance_scale != 1.0 else None
@@ -183,3 +204,13 @@ class DynamiCrafter(nn.Module):
             x_T = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         samples = ddim_sample(ddim, x_T, fn, generator=generator, step_noise=step_noise)
         return self.decode_first_stage(samples) if decode else samples
+
+
+def _stack(a: Any, b: Any) -> Any:
+    """Concatenate two payloads of the same structure (dicts and tuples of
+    tensors) along the batch axis."""
+    if isinstance(a, dict):
+        return {k: _stack(a[k], b[k]) for k in a}
+    if isinstance(a, tuple):
+        return tuple(_stack(x, y) for x, y in zip(a, b))
+    return torch.cat([a, b])

@@ -1,6 +1,8 @@
-"""Transformer blocks of the 3D UNet (`camc2v_tpu/nn/attention.py`), without
-the camera branches (Plücker projection, epipolar attention, MotionCtrl and
-CameraCtrl injections), which come with the camera models.
+"""Transformer blocks of the 3D UNet (`camc2v_tpu/nn/attention.py`), with
+the CamI2V / CamContextI2V camera branch of the temporal blocks (the
+`plucker_epipolar` mode: a `pluker_projection` of the Plücker features plus
+an `Epipolar` attention, added onto the residual stream or into attn1's
+input). The MotionCtrl and CameraCtrl injections are not ported and raise.
 
 Token tensors are (N, L, C); SpatialTransformer takes (B*T, H, W, C) maps and
 TemporalTransformer (B, T, H, W, C) videos. One module tree serves both
@@ -23,6 +25,8 @@ import torch
 from torch import nn
 
 from camc2v_tpu_torch import ops
+from camc2v_tpu_torch.config import EpipolarConfig
+from camc2v_tpu_torch.nn.epipolar import Epipolar
 from camc2v_tpu_torch.nn.layers import Dense, GroupNorm32, LayerNormF32
 from camc2v_tpu_torch.ops import geglu_ff as gff
 from camc2v_tpu_torch.ops import temporal_attention as ta
@@ -132,15 +136,29 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """attn1 (self) -> attn2 (cross, or self when there is no context) -> FF,
-    each pre-LN with a residual."""
+    each pre-LN with a residual.
+
+    A temporal block with `use_camera` and/or `epipolar` given a camera
+    payload runs the camera branch (reference modified_forwards.py:505-536):
+    `normed = norm1(x)`, Plücker tokens `pl` of this level,
+    `z = pluker_projection(normed + pl) + epipolar(normed + pl)`, then
+    `x = z + attn1(normed) + x` (add_type 'add_to_main_branch') or
+    `x = attn1(normed + z) + x` ('add_into_temporal_attn'). attn1 then runs
+    K3 without its LayerNorm, since norm1's output feeds the branch too."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, *, context_dim: Optional[int] = None,
                  disable_self_attn: bool = False, image_cross_attention: bool = False,
                  image_cross_attention_scale_learnable: bool = False, text_context_len: int = 77,
-                 dtype=torch.float32):
+                 use_camera: bool = False, epipolar: Optional[EpipolarConfig] = None,
+                 add_type: str = "add_to_main_branch", dtype=torch.float32):
         super().__init__()
         self.dim, self.n_heads, self.d_head, self.dtype = dim, n_heads, d_head, dtype
         self.disable_self_attn = disable_self_attn
+        if add_type not in ("add_to_main_branch", "add_into_temporal_attn"):
+            raise ValueError(f"unknown add_type '{add_type}'")
+        self.add_type = add_type
+        self.pluker_projection = Dense(dim, dim, dtype=dtype) if use_camera else None
+        self.epipolar = Epipolar(epipolar, dim, n_heads, dtype=dtype) if epipolar is not None else None
         self.norm1 = LayerNormF32(dim)
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None, heads=n_heads,
                                     dim_head=d_head, dtype=dtype)
@@ -154,9 +172,32 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim, dim, dtype=dtype)
 
-    def forward(self, x, context=None, *, context_mask=None):
+    def _camera_step(self, x, camera: dict, spatial_hw: tuple[int, int]):
+        hh, ww = spatial_hw
+        n, t, _ = x.shape
+        b = n // (hh * ww)
+        normed = self.norm1(x)
+        zero_init_x = torch.zeros_like(normed)
+        plucker = camera.get("plucker")
+        epi_in = normed
+        if self.pluker_projection is not None and plucker is not None:
+            # (B, T, h, w, C) -> (B*h*w, T, C), the temporal stream's layout
+            pl_tokens = plucker.permute(0, 2, 3, 1, 4).reshape(n, t, -1).to(normed.dtype)
+            epi_in = normed + pl_tokens
+            zero_init_x = zero_init_x + self.pluker_projection(epi_in)
+        if self.epipolar is not None:
+            feats = epi_in.reshape(b, hh, ww, t, -1).permute(0, 3, 1, 2, 4)
+            zero_init_x = zero_init_x + self.epipolar(feats, F=camera.get("F"), prep=camera.get("epi_prep"))
+        if self.add_type == "add_to_main_branch":
+            return zero_init_x + self.attn1(normed) + x
+        return self.attn1(normed + zero_init_x) + x
+
+    def forward(self, x, context=None, *, context_mask=None, camera: Optional[dict] = None,
+                spatial_hw: Optional[tuple[int, int]] = None):
         fusable = _fused_mha_ok(x, self.dtype)
-        if not self.disable_self_attn and fusable:
+        if camera is not None and (self.pluker_projection is not None or self.epipolar is not None):
+            x = self._camera_step(x, camera, spatial_hw)
+        elif not self.disable_self_attn and fusable:
             x = self.attn1.fused_self_attention(x, self.norm1)
         else:
             x = self.attn1(self.norm1(x), context=context if self.disable_self_attn else None) + x
@@ -203,29 +244,36 @@ class SpatialTransformer(nn.Module):
 
 class TemporalTransformer(nn.Module):
     """Temporal transformer over T tokens per pixel: (B, T, H, W, C) -> same
-    (reference lvdm/modules/attention.py:323-428), self-attention only."""
+    (reference lvdm/modules/attention.py:323-428 + modified_forwards.py:
+    401-450), self-attention only, with the camera branch when configured."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, *, depth: int = 1,
                  only_self_att: bool = True, causal_attention: bool = False,
-                 relative_position: bool = False, dtype=torch.float32):
+                 relative_position: bool = False, use_camera: bool = False,
+                 epipolar: Optional[EpipolarConfig] = None, add_type: str = "add_to_main_branch",
+                 camera_mode: str = "plucker_epipolar", dtype=torch.float32):
         super().__init__()
         if not only_self_att or causal_attention or relative_position:
             raise NotImplementedError(
                 "TemporalTransformer: temporal cross-attention, causal masks and relative "
                 "positions are not ported (all off in the shipped configs)")
+        if camera_mode != "plucker_epipolar":
+            raise NotImplementedError(f"TemporalTransformer: camera_mode '{camera_mode}' (MotionCtrl, "
+                                      "CameraCtrl) is not ported")
         inner = n_heads * d_head
         self.depth = depth
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = Dense(in_channels, inner, dtype=dtype)
         for i in range(depth):
-            setattr(self, f"block_{i}", BasicTransformerBlock(inner, n_heads, d_head, dtype=dtype))
+            setattr(self, f"block_{i}", BasicTransformerBlock(
+                inner, n_heads, d_head, use_camera=use_camera, epipolar=epipolar, add_type=add_type, dtype=dtype))
         self.proj_out = Dense(inner, in_channels, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, camera: Optional[dict] = None):
         b, t, hh, ww, c = x.shape
         h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
         h = self.proj_in(h)
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h)
+            h = getattr(self, f"block_{i}")(h, camera=camera, spatial_hw=(hh, ww))
         h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
         return (x + h).contiguous()

@@ -6,7 +6,7 @@ the JAX plain-path numerics that the wrapper uses for CPU tensors.
 
 `route()` is the one rule by which the model's seams choose between a
 kernel and its plain twin: a kernel runs for every tensor on the card whose
-dtype it takes. K1 takes bf16 and f32; K2-K4 are bf16 kernels, so a model
+dtype it takes. K1 takes bf16 and f32; K2-K4 and K6 are bf16 kernels, so a model
 built in f32 runs them on their plain twins on the card too. A shape that a
 kernel cannot take raises in its wrapper, except at the sites each seam's
 docstring lists as staying plain. Inside a `plain_twins()` block every seam
@@ -29,6 +29,7 @@ LAUNCHES: dict[str, int] = {
     "flash_attention": 0,
     "temporal_attention": 0,
     "geglu_ff": 0,
+    "epipolar_flash": 0,
 }
 
 _plain_depth = 0

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff")
+KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -12,17 +12,23 @@ Sites that stay plain on the card, and why:
     in every shipped config): K2 takes masks, not biases;
   * per-head masks (a mask whose head axis is > 1): K2 shares one mask
     across heads; no model site builds one;
-  * head dims that are not a multiple of 16 or exceed 128, i.e. the VAE
+  * head dims that are not a multiple of 16 or exceed 128: the VAE
     mid-block's single-head D=512 attention (`nn/vae.py::AEAttnBlock`, one
-    call per encode or decode): K2's f32 output accumulator and K/V tiles
-    are sized for D <= 128;
+    call per encode or decode) and the pose encoder's temporal attention at
+    its first and last two levels (`camera/pose_encoder.py`, 8 heads of
+    D = 40 at C = 320 and D = 160 at C = 1280, over 16 frames; once per
+    request): K2's K/V tiles take 16-wide slices and its f32 output
+    accumulator is sized for D <= 128;
   * f32 inputs (a model built in f32): K2 is a bf16 kernel (`ops.route`).
 
 Model sites that do reach K2: the UNet's spatial self-attention over more
 than 32 tokens and its text/image cross-attention (D = 64), the CLIP text
-tower (D = 64, one causal (1, 1, 77, 77) mask shared by the batch), and the
-CLIP vision tower (D = 80, Lq = Lk = 257, no mask). The Resampler's
-attention does not use this seam (`nn/resampler.py`).
+tower (D = 64, one causal (1, 1, 77, 77) mask shared by the batch), the
+CLIP vision tower (D = 80, Lq = Lk = 257, no mask), the pose encoder's
+D = 80 level (C = 640), and the epipolar attention where its mask is
+materialised (`nn/epipolar.py`: the ds32 level and the middle block, D = 64,
+a (B, Lq, 4 + Lq) mask shared by the heads). The Resampler's attention does
+not use this seam (`nn/resampler.py`).
 """
 
 from __future__ import annotations

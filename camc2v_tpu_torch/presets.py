@@ -1,16 +1,27 @@
-"""Production-size presets of the port (values of `camc2v_tpu/presets.py`).
+"""Production-size presets of the port (values of `camc2v_tpu/presets.py`)
+and `build`, the entry point that makes a model on a device.
 
 reference: configs/models/camcontexti2v_256.yaml and
-configs/baseline/dynamicrafter_256.yaml. Only DynamiCrafter-256 is ported so
-far; the camera families follow with their modules.
+configs/baseline/{dynamicrafter,cami2v}_256.yaml. DynamiCrafter-256, CamI2V-256
+and CamContextI2V-256 (the paper's model) are ported; MotionCtrl and
+CameraCtrl are not.
+
+    model = build("camcontexti2v_256")  # bf16 on cuda, seeded random weights
 """
 
 from __future__ import annotations
 
+import torch
+
 from camc2v_tpu_torch.config import (
+    AdaptorConfig,
+    CamContextI2VConfig,
+    CamI2VConfig,
     CLIPTextConfig,
     CLIPVisionConfig,
     DynamiCrafterConfig,
+    EpipolarConfig,
+    PoseEncoderConfig,
     ResamplerConfig,
     UNetConfig,
     VAEConfig,
@@ -57,6 +68,19 @@ RESAMPLER_256 = ResamplerConfig(
     use_timestep_emb=True,
 )
 
+POSE_ENCODER_256 = PoseEncoderConfig(
+    downscale_factor=8, channels=(320, 640, 1280, 1280), nums_rb=2, cin=384,
+    ksize=1, sk=True, use_conv=False, compression_factor=1,
+    temporal_attention_nhead=8, temporal_position_encoding=True,
+    temporal_position_encoding_max_len=16,
+)
+
+EPIPOLAR_256 = EpipolarConfig(
+    origin_h=256, origin_w=256, is_3d_full_attn=False, num_register_tokens=4,
+    attention_resolution=(8, 4, 2, 1), compression_factor=1,
+    add_small_perturbation_on_zero_T=True,
+)
+
 _DIFFUSION_256 = dict(
     timesteps=1000,
     beta_schedule="linear",
@@ -80,4 +104,73 @@ def dynamicrafter_256() -> DynamiCrafterConfig:
     return DynamiCrafterConfig(unet=unet_256(), loss_type="l2", **_DIFFUSION_256)
 
 
-PRESETS = {"dynamicrafter_256": dynamicrafter_256}
+def cami2v_256() -> CamI2VConfig:
+    return CamI2VConfig(
+        unet=unet_256(use_camera=True, epipolar=EPIPOLAR_256, add_type="add_into_temporal_attn"),
+        pose_encoder=POSE_ENCODER_256,
+        epipolar=EPIPOLAR_256,
+        add_type="add_into_temporal_attn",
+        loss_type="l2",
+        **_DIFFUSION_256,
+    )
+
+
+def camcontexti2v_256() -> CamContextI2VConfig:
+    """reference: configs/models/camcontexti2v_256.yaml (the paper's model)."""
+    return CamContextI2VConfig(
+        unet=unet_256(use_camera=True, epipolar=EPIPOLAR_256, add_type="add_to_main_branch"),
+        pose_encoder=POSE_ENCODER_256,
+        epipolar=EPIPOLAR_256,
+        add_type="add_to_main_branch",
+        multi_cond_strategy="token_concat_latent_epipolar",
+        adaptor=AdaptorConfig(
+            query_dim=512, num_queries=1024, video_length=16, embedding_dim=4,
+            output_dim=4, depth=12, timestep_embedding_type="sinusoidal_embedded",
+            use_plucker_embedding=False,
+        ),
+        use_cross_normalization=False,
+        use_zero_conv_latent_input=True,
+        use_semantic_branch=True,
+        loss_type="l2_log",
+        **_DIFFUSION_256,
+    )
+
+
+PRESETS = {
+    "dynamicrafter_256": dynamicrafter_256,
+    "cami2v_256": cami2v_256,
+    "camcontexti2v_256": camcontexti2v_256,
+}
+
+
+def _model_class(config: DynamiCrafterConfig):
+    """The port's model class of a configuration."""
+    from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V
+    from camc2v_tpu_torch.models.camera_base import CamI2V
+    from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
+
+    for cfg_cls, cls in ((CamContextI2VConfig, CamContextI2V), (CamI2VConfig, CamI2V)):
+        if isinstance(config, cfg_cls):
+            return cls
+    return DynamiCrafter
+
+
+def build(name: str, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):
+    """The preset `name` as an inference model on `device`: built there,
+    seeded random weights (`utils.weights.init_weights`, no checkpoint in
+    the repository), Dense/Conv weights stored in `dtype`, eval mode. On
+    the card the matmul numerics are pinned first (`configure_numerics`).
+    Raises on a machine without CUDA unless the caller asks for the CPU."""
+    from camc2v_tpu_torch import configure_numerics
+    from camc2v_tpu_torch.utils.weights import cast_for_inference, init_weights
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("build: CUDA is not available; pass device='cpu' to build on the CPU")
+        configure_numerics()
+    config = PRESETS[name]()
+    with torch.device(device):
+        model = _model_class(config)(config, dtype=dtype)
+    init_weights(model, torch.Generator(device=device).manual_seed(seed))
+    return cast_for_inference(model.eval(), dtype)

@@ -5,7 +5,11 @@ parameters, given as a flat `{"unet/in_0_res/in_conv/kernel": ndarray}` dict
 (flattening the JAX tree is the caller's job; it needs jax). Names map one
 to one: `GroupNorm_0` / `LayerNorm_0` path segments drop out, `kernel` and
 `scale` become `weight`, Dense kernels (in, out) transpose to (out, in), and
-Conv kernels HWIO / DHWIO become OIHW / OIDHW. The load is strict: every
+Conv kernels HWIO / DHWIO become OIHW / OIDHW. The camera modules carry the
+JAX names too (`.../pluker_projection`, `.../epipolar/epipolar_attn/
+{to_q,to_k,to_v,to_out,register_tokens}`, `pose_encoder/level{i}_{res,attn}{j}`,
+`adaptor/{latents,proj_in,attn_i,ff_i,temb_fc1,temb_fc2,proj_out,norm_out}`,
+and `zero_conv`, a 3x3x3 DHWIO kernel). The load is strict: every
 parameter of the module is filled exactly once, every JAX leaf is used or
 matched by `skip`, and shapes must agree; anything else raises.
 """
@@ -82,7 +86,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
     Dense/Conv weights ~ N(0, 1/fan_in) (lecun normal, untruncated)
     and zero biases; norms at identity; embeddings N(0, 0.02), positional
-    N(0, 0.01), resampler latents N(0, dim^-1/2). Unlike a fresh JAX init
+    N(0, 0.01), resampler and adaptor latents N(0, dim^-1/2), epipolar
+    register tokens N(0, 1) (the JAX init). Unlike a fresh JAX init
     no projection is zero, so every branch is live (what a trained
     checkpoint looks like, and what `perturb_zero_kernels` does in tests)."""
     for name, p in module.named_parameters():
@@ -96,6 +101,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, 0.01, generator=generator)
         elif leaf == "latents":
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
+        elif leaf == "register_tokens":
+            p.normal_(0.0, 1.0, generator=generator)
     for m in module.modules():
         if isinstance(m, (Dense, Conv)) and m.bias is not None:
             m.bias.zero_()
