@@ -3,12 +3,11 @@
 //
 // Replaces the Pallas kernel camc2v_tpu/ops/epipolar_flash.py::_v2_kernel
 // (entry epipolar_flash_attention, in-kernel mask path). What it computes:
-// attention of q (B, Lq, H, D) over k/v (B, t*hw + block_k, H, D) where the
+// attention of q (B, Lq, H, D) over k/v (B, t*hw + nreg, H, D) where the
 // key j < t*hw of frame f = j / hw is visible to query i when
 // |a*px + b*py + c| < ds*sqrt(2)/2, (a, b, c) = lines[b, i, f] (f32) and
-// (px, py) the image coordinates of pixel j % hw; the first `nreg` keys of
-// the trailing block_k tile (register tokens) are always visible and the
-// padding after them is never loaded. The distance is formed as
+// (px, py) the image coordinates of pixel j % hw; the `nreg` keys after the
+// frames (register tokens) are always visible. The distance is formed as
 // __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c), the order the
 // plain twin uses in eager torch, so no FMA contraction flips a borderline
 // bit; NaN lines (F == 0) compare false and hide their whole frame.
@@ -23,10 +22,11 @@
 //
 // The TPU kernel's 256 x 1024 tiles, whole-key-axis VMEM residency and head
 // groups do not carry over: this is the online-softmax core of K2
-// (flash_core.cuh) with a line-distance mask policy. On the H100 the op is
-// tensor-core bound (4*D operations per visible query-key pair); the core's
-// WMMA tiles with scores in shared memory reach a fraction of the bf16 peak,
-// and wgmma/TMA pipelining is later work.
+// (flash_core.cuh) with a line-distance mask policy. The masks are sparse
+// (a few percent of the bits set), so the op's least time is set by its
+// bytes; the 256 x 256 skip map leaves far more pairs on than the mask
+// keeps, and the core's WMMA tiles with scores in shared memory reach a
+// fraction of the bf16 peak. A finer skip map and wgmma/TMA are later work.
 #include "flash_core.cuh"
 
 namespace {
@@ -93,17 +93,18 @@ epipolar_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
 
 }  // namespace
 
-// q (B, Lq, H, D), k/v (B, Lk = t*hw + block_k, H, D), out (B, Lq, H, D):
+// q (B, Lq, H, D), k/v (B, Lk = t*hw + nreg, H, D), out (B, Lq, H, D):
 // contiguous bf16. lines (B, Lq, t, 3) f32; tile_any (B, Lq / block_q, cols)
-// int32 with cols = Lk / sub. hw and sub multiples of 64, block_q a multiple
-// of 64, nreg <= 64, D a multiple of 16 up to 128 (the wrapper checks).
+// int32 with cols = (t*hw + block_k) / sub, the register column at
+// t*hw / sub. hw and sub multiples of 64, block_q a multiple of 64,
+// nreg <= 64, D a multiple of 16 up to 128 (the wrapper checks).
 // `scale` is the bf16-rounded softmax scale; `thresh` = ds*sqrt(2)/2 in f32.
 extern "C" int epipolar_flash_fwd(const void* q, const void* k, const void* v, const void* lines,
                                   const void* tile_any, void* out, int B, int Lq, int Lk, int H, int D,
                                   int t, int hw, int w, int nreg, int block_q, int sub, int cols,
                                   float scale, float ds, float thresh, void* stream) {
   if (D % 16 != 0 || D > 128 || hw % flash::BK != 0 || sub % flash::BK != 0 || block_q % flash::BQ != 0 ||
-      nreg < 0 || nreg > flash::BK)
+      nreg < 0 || nreg > flash::BK || Lk != t * hw + nreg)
     return (int)cudaErrorInvalidValue;
   const int nq = (Lq + flash::BQ - 1) / flash::BQ;
   const size_t smem = flash::core_smem_bytes(D) + STAGE_FLOATS * sizeof(float);

@@ -81,7 +81,8 @@ class EpipolarCrossAttention(nn.Module):
     forward(x (B, L1, C), context (B, L2, Cc), attn_mask (B, L1, L2) bool or
     None, *, lines, geom, tile_any): with `lines` (B, L1, t, 3) and `geom`
     (t, h, w, ds, block_k) the mask is computed in the kernel and the
-    registers ride at the end of the key axis, padded to a block_k tile."""
+    registers ride at the end of the key axis (block_k names the tile map's
+    layout)."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, out_dim: Optional[int] = None, *,
                  heads: int = 8, dim_head: int = 64, num_register_tokens: int = 0, dtype=torch.float32):
@@ -109,10 +110,9 @@ class EpipolarCrossAttention(nn.Module):
             if attn_mask is not None or geom is None:
                 raise ValueError("EpipolarCrossAttention: the lines path takes geom and no attn_mask")
             t, hh, ww, ds, block_k = geom
-            pad = torch.zeros(b, block_k - nreg, context.shape[-1], dtype=context.dtype, device=context.device)
-            regs = [self._registers(b, context)] if nreg > 0 else []
-            context_ext = torch.cat([context, *regs, pad], dim=1)
-            k, v = self.to_k(context_ext), self.to_v(context_ext)
+            if nreg > 0:
+                context = torch.cat([context, self._registers(b, context)], dim=1)
+            k, v = self.to_k(context), self.to_v(context)
             kw = dict(t=t, h=hh, w=ww, downsample=ds, num_registers=nreg)
             if ops.route(q):
                 out = ef.epipolar_flash_attention(split(q).contiguous(), split(k).contiguous(),

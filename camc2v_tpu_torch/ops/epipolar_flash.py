@@ -3,15 +3,16 @@
 The CUDA kernel (`csrc/epipolar_flash.cu`) replaces the Pallas kernel
 `camc2v_tpu/ops/epipolar_flash.py::_v2_kernel` (entry
 `epipolar_flash_attention`, in-kernel mask path): online-softmax attention of
-q (B, Lq, H, D) over k/v (B, t*h*w + block_k, H, D) where the mask bit of
-query i and frame key j is recomputed from i's normalised epipolar line
+q (B, Lq, H, D) over k/v (B, t*h*w + num_registers, H, D) where the mask bit
+of query i and frame key j is recomputed from i's normalised epipolar line
 (a, b, c) in j's frame as |a*px + b*py + c| < ds*sqrt(2)/2, so no (B, Lq, Lk)
-array exists. Register tokens sit at the END of the key axis in a trailing
-block_k tile (the first `num_registers` keys always visible, the padding
-hidden; attention is invariant to the reordering from the reference's front
+array exists. Register tokens sit at the END of the key axis and are always
+visible (attention is invariant to the reordering from the reference's front
 position). Key subtiles that the hull bitmap `tile_any` marks empty for a
 256-query tile are skipped; NaN lines (F == 0) hide their whole key frame and
-fully masked rows give 0.
+fully masked rows give 0. The tile map keeps the JAX layout, registers in a
+trailing block_k tile whose first subtile is always set; the keys themselves
+are not padded to it.
 
 The geometry helpers (`epipolar_lines`, `epipolar_tile_map`,
 `materialize_mask`, the tiling rules) are exact ports of the JAX functions:
@@ -21,10 +22,9 @@ order, `(a*px + b*py) + c` with each product and sum rounded to f32 (eager
 torch elementwise ops here, `__fmul_rn`/`__fadd_rn` in the kernel), so the
 kernel and its twin agree on every bit.
 
-On the H100 the kernel is tensor-core bound at the UNet's ds8 sites
-(Lq = 16384 over 16384 frame keys, about half of them skipped) and at the
-adaptor (16384 queries over 3072 keys); the bound counts 4*D operations per
-visible query-key pair of the skipped-subtile layout.
+The least time the function needs counts 4*D operations per query-key pair
+whose mask bit is set (`mask_pairs`); the work K6 does after skipping counts
+every pair of the subtiles the map leaves on (`visible_pairs`).
 """
 
 from __future__ import annotations
@@ -153,21 +153,19 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
                              num_registers: int, scale: Optional[float] = None):
     """Plain twin of K6 over the kernel's layout, chunked over queries.
 
-    q (B, Lq, H, D); k/v (B, t*h*w + pad, H, D) with the register keys first
-    in the trailing pad; lines (B, Lq, t, 3). The JAX plain-path numerics: q
-    pre-scaled in its own dtype, products accumulated in f32, masked logits
+    q (B, Lq, H, D); k/v (B, t*h*w + num_registers, H, D), the register keys
+    last; lines (B, Lq, t, 3). The JAX plain-path numerics: q pre-scaled in
+    its own dtype, products accumulated in f32, masked logits
     -1e30, running max floored at -1e20, probabilities cast to v's dtype for
     the PV product, fully masked rows 0. Chunking keeps the f32 logits at
     (B, H, chunk, Lk): dense logits at the ds8 site would be 11 GB."""
     b, lq, heads, d = q.shape
-    thw = t * h * w
-    lk = thw + num_registers
     if scale is None:
         scale = d ** -0.5
     gx, gy = _pixel_grid(h, w, downsample, q.device)
     thresh = downsample * math.sqrt(2.0) / 2.0
     qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
-    kf, vf = k[:, :lk].float(), v[:, :lk]
+    kf, vf = k.float(), v.float()
     reg = torch.ones(b, 1, num_registers, dtype=torch.bool, device=q.device)
     out = torch.empty_like(q)
     for s in range(0, lq, TWIN_CHUNK):
@@ -179,7 +177,7 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
         m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=M_FLOOR)
         p = torch.exp(logits - m)
         l = p.sum(dim=-1, keepdim=True)
-        acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf.float())
+        acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf)
         acc = acc / torch.where(l == 0, torch.ones_like(l), l)
         out[:, s:e] = acc.permute(0, 2, 1, 3).to(q.dtype)
     return out
@@ -192,10 +190,11 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
 
     q: (B, Lq, H, D); Lq need not be t*h*w (the adaptor's learned queries
     attend over 1 + n_ctx key frames), lines carry one row per query.
-    k, v: (B, t*h*w + block_k, H, D), the register tokens first in the
-    trailing block_k tile. lines: (B, Lq, t, 3) from `epipolar_lines`.
-    tile_any: (B, Lq/block_q, nK*nsub) from `epipolar_tile_map` with the same
-    block_q/block_k, built here when absent.
+    k, v: (B, t*h*w + num_registers, H, D), the register tokens last.
+    lines: (B, Lq, t, 3) from `epipolar_lines`. tile_any: (B, Lq/block_q,
+    nK*nsub) from `epipolar_tile_map` with the same block_q/block_k (its
+    trailing block_k tile holds the register column), built here when
+    absent.
 
     CPU tensors take the plain twin; CUDA tensors launch K6 (bf16, head dim
     a multiple of 16 up to 128) or raise."""
@@ -207,8 +206,8 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
         scale = d ** -0.5
     if lines.shape != (b, lq, t, 3):
         raise ValueError(f"epipolar_flash_attention: lines {tuple(lines.shape)} vs {(b, lq, t, 3)}")
-    if lk != thw + block_k or not 0 <= num_registers <= block_k:
-        raise ValueError(f"epipolar_flash_attention: Lk {lk} != t*h*w + block_k = {thw + block_k} "
+    if lk != thw + num_registers or not 0 <= num_registers <= block_k:
+        raise ValueError(f"epipolar_flash_attention: Lk {lk} != t*h*w + num_registers = {thw + num_registers} "
                          f"or registers {num_registers} outside [0, block_k]")
     if not (hw % block_k == 0 or (block_k % hw == 0 and thw % block_k == 0)) or lq % block_q:
         raise ValueError(f"epipolar_flash_attention: block_k {block_k} does not tile hw {hw} x t {t}, "
@@ -250,10 +249,25 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     return out
 
 
+def mask_pairs(lines: torch.Tensor, *, heads: int, t: int, h: int, w: int, downsample: int,
+               num_registers: int) -> int:
+    """Query-key pairs whose mask bit is set, registers included (times
+    heads): the work the masked attention needs for these lines, which K6's
+    bound counts. Chunked over queries like the twin."""
+    b, lq = lines.shape[:2]
+    if lines.shape[2:] != (t, 3):
+        raise ValueError(f"mask_pairs: lines {tuple(lines.shape)} vs {(b, lq, t, 3)}")
+    gx, gy = _pixel_grid(h, w, downsample, lines.device)
+    thresh = downsample * math.sqrt(2.0) / 2.0
+    frame = sum(int(_distance_mask(lines[:, s:s + TWIN_CHUNK].float(), gx, gy, thresh).sum())
+                for s in range(0, lq, TWIN_CHUNK))
+    return (frame + b * lq * num_registers) * heads
+
+
 def visible_pairs(tile_any: torch.Tensor, *, heads: int, t: int, hw: int, num_registers: int,
                   block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> int:
     """Query-key pairs inside subtiles the map leaves visible (times heads):
-    the work K6 does for these inputs, which its bound counts."""
+    the work K6 does for these inputs after skipping."""
     sub = min(SUBTILE, block_k, hw)
     frame_cols = t * hw // sub
     frame = int(tile_any[..., :frame_cols].sum()) * block_q * sub

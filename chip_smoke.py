@@ -19,20 +19,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               (`F.group_norm` for K1, scaled dot-product attention for K2 and,
               with the materialised bool mask, for K6); the bound is the
               least time the card could take (larger of bytes over 3.35 TB/s
-              and operations over 989 TFLOP/s bf16).
+              and operations over 989 TFLOP/s bf16; K6 counts 4*D operations
+              per set mask bit).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
               profiled at batch 1 (device time by kernel, smoke_out/).
   5. generate DynamiCrafter-256 and CamContextI2V-256 (2 context frames, the
               bench camera trajectory) at full width, seeded random weights,
-              bf16 on cuda:0, built by `presets.build`: two requests each
-              (batch 1, then batch 2; other images and seeds), the full
-              25-step DDIM recipe (eta 1.0, CFG 7.5, rescale 0.7,
+              bf16 on cuda:0, built by `presets.build`: three requests each
+              (batch 1, batch 1 again, then batch 2; other images and seeds),
+              the full 25-step DDIM recipe (eta 1.0, CFG 7.5, rescale 0.7,
               uniform_trailing) and VAE decode. Output shape
               (B, 16, 256, 256, 3) and finite; seconds per video; peak
-              memory; for CamContextI2V the conditioning share (pose encoder,
-              adaptor, CLIP, VAE encode: `prepare_batch`).
+              memory; the request's split into conditioning (`prepare_batch`:
+              for CamContextI2V pose encoder, adaptor, CLIP, VAE encode), UNet
+              calls, decode and the rest; the SM clock and power meanwhile.
   6. launches every kernel of each model's path launched during its requests
               (counts zeroed just before each model's requests, read after).
 The line before the last is a JSON summary of the kernels; the last line is
@@ -65,6 +67,29 @@ def _device_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+class _ClockSampler:
+    """nvidia-smi sampling the SM clock, power draw and clock-event reasons
+    every 200 ms while the block runs; the process is stopped on exit."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_event_reasons.active",
+             "--format=csv,noheader,nounits", "-lms", "200"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        rows = [r.split(",") for r in self.proc.communicate(timeout=30)[0].splitlines()]
+        try:
+            clocks = sorted(float(r[0]) for r in rows)
+            self.summary = (f"SM clock {clocks[0]:.0f}/{clocks[len(clocks) // 2]:.0f}/{clocks[-1]:.0f} MHz "
+                            f"(min/median/max of {len(rows)} samples), power <= {max(float(r[1]) for r in rows):.0f} W, "
+                            f"clock-event reasons {sorted({r[2].strip() for r in rows})}")
+        except (IndexError, ValueError):
+            self.summary = f"clocks not measured (nvidia-smi printed {rows[:1]})"
+        return False
 
 
 def _time_ms(fn, reps: int = 10) -> float:
@@ -157,17 +182,19 @@ def epipolar_checks(dev, g) -> dict:
         bk = ef.choose_block_k(hw)
         tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
         q = torch.randn(b, lq, heads, 64, generator=g, device=dev).to(bf)
-        k = torch.randn(b, t * hw + bk, heads, 64, generator=g, device=dev).to(bf)
-        v = torch.randn(b, t * hw + bk, heads, 64, generator=g, device=dev).to(bf)
-        k[:, t * hw + nreg:] = 0
-        v[:, t * hw + nreg:] = 0
+        k = torch.randn(b, t * hw + nreg, heads, 64, generator=g, device=dev).to(bf)
+        v = torch.randn(b, t * hw + nreg, heads, 64, generator=g, device=dev).to(bf)
         kw = dict(t=t, h=h, w=w, downsample=ds, num_registers=nreg)
         run = lambda: ef.epipolar_flash_attention(q, k, v, lines, block_k=bk, tile_any=tiles, **kw)  # noqa: E731
         twin = lambda: ef.epipolar_attention_plain(q, k, v, lines, **kw)  # noqa: E731
-        visible = ef.visible_pairs(tiles, heads=heads, t=t, hw=hw, num_registers=nreg, block_k=bk)
-        bound = _bound(_nbytes(q, k[:, :t * hw + nreg], v[:, :t * hw + nreg], lines, tiles, q), 4 * 64 * visible)
+        # the bound counts the pairs whose mask bit is set; the pairs of the
+        # subtiles the skip map leaves on are the work K6 does after skipping
+        needed = ef.mask_pairs(lines, heads=heads, **kw)
+        after_skip = ef.visible_pairs(tiles, heads=heads, t=t, hw=hw, num_registers=nreg, block_k=bk)
         return dict(run=run, twin=twin, q=q, k=k, v=v, lines=lines, kw=kw, skip=1 - tiles.float().mean().item(),
-                    **bound)
+                    density=needed / (b * lq * heads * (t * hw + nreg)), pairs=needed, pairs_after_skip=after_skip,
+                    after_skip_ms=4 * 64 * after_skip / PEAK_BF16 * 1e3,
+                    **_bound(_nbytes(q, k, v, lines, tiles, q), 4 * 64 * needed))
 
     F = bench_F(dev, b=2)
     K = bench_camera(1, dev)
@@ -190,18 +217,22 @@ def epipolar_checks(dev, g) -> dict:
     for name, c in cases.items():
         errs.append(_compare(f"epipolar {name} skip={c['skip']:.3f}", c["run"](), c["twin"]()))
         site_ms[name] = dict(ms=_time_ms(c["run"]), bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                             skip=c["skip"])
+                             skip=c["skip"], mask_density=c["density"], pairs=c["pairs"],
+                             pairs_after_skip=c["pairs_after_skip"], after_skip_ops_ms=c["after_skip_ms"])
         print(f"  time epipolar {name}: kernel {site_ms[name]['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}), subtiles skipped {c['skip']:.3f}", flush=True)
+              f"({c['bound_by']}; mask bits set {c['density']:.4f}), subtiles skipped {c['skip']:.3f}, "
+              f"pairs after skipping {c['pairs_after_skip'] / c['pairs']:.2f}x the set bits "
+              f"({c['after_skip_ms']:.4f} ms at the bf16 peak)", flush=True)
     main = cases["ds8 B=1 (1,16384,5,64)"]
     plain = _time_ms(main["twin"], reps=3)
     # the library call: scaled dot-product attention with the materialised
     # bool mask, registers first-class keys (padding dropped)
-    q, k, v, kw = main["q"], main["k"], main["v"], main["kw"]
-    lk = 16 * 1024 + 4
+    q, k, v = main["q"], main["k"], main["v"]
     mask = torch.cat([ef.materialize_mask(main["lines"], 16, 32, 32, 8),
                       torch.ones(1, q.shape[1], 4, dtype=torch.bool, device=dev)], dim=-1)[:, None]
-    qt, kt, vt = q.transpose(1, 2), k[:, :lk].transpose(1, 2), v[:, :lk].transpose(1, 2)
+    if int(mask.sum()) * q.shape[2] != main["pairs"]:
+        _fail("epipolar: the chunked count of set mask bits disagrees with the materialised mask")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     try:
         library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
                            reps=3)
@@ -427,63 +458,95 @@ def camcontext_unet_check(model, dev) -> dict:
                 if dt is None:
                     dt = getattr(e, "cuda_time_total", 0)
                 if dt and e.key and not e.key.startswith("aten::") and "Memcpy" not in e.key:
-                    by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dt / 1e3
+                    ms, n = by_kernel.get(e.key, (0.0, 0))
+                    by_kernel[e.key] = (ms + dt / 1e3, n + e.count)
         except RuntimeError as err:  # no profiler on this machine: the step time stands alone
             print(f"  profiler: {err}", flush=True)
-        total = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+        total = sum(ms for ms, _ in by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
         with open(os.path.join(OUT_DIR, "camcontext_step_profile.txt"), "w") as f:
-            f.write(f"camcontext UNet step batch 1, device ms by kernel (sum {total:.3f}, "
+            f.write(f"camcontext UNet step batch 1, device ms by kernel and calls (sum {total:.3f}, "
                     f"event-timed step {step_ms:.3f})\n")
-            for key, ms in top:
-                f.write(f"{ms:10.3f}  {key}\n")
-        for key, ms in top[:12]:
-            print(f"  profile {ms:8.3f} ms  {key[:110]}", flush=True)
+            for key, (ms, n) in top:
+                f.write(f"{ms:10.3f} {n:6d}  {key}\n")
+        for key, (ms, n) in top[:12]:
+            print(f"  profile {ms:8.3f} ms {n:5d} calls  {key[:100]}", flush=True)
         print(f"  profile: device time summed over kernels {total:.3f} ms", flush=True)
-    return dict(step_ms=step_ms, profiled_ms=total)
+        k6_ms, k6_calls = by_kernel.get(next((k for k in by_kernel if "epipolar_fwd_kernel" in k), ""), (0.0, 0))
+        print(f"  profile: K6 epipolar_fwd_kernel {k6_ms:.3f} ms over {k6_calls} calls", flush=True)
+    return dict(step_ms=step_ms, profiled_ms=total, k6_profiled_ms=k6_ms, k6_profiled_calls=k6_calls)
 
 
 def generate(model, make_batch, label: str, device_line: str) -> list:
-    """Two requests (batch 1, batch 2) through `model.sample`; times the
-    conditioning (`prepare_batch`) inside each with CUDA events."""
+    """Three requests (batch 1, batch 1 again, batch 2) through `model.sample`;
+    CUDA events inside each time the conditioning (`prepare_batch`), every
+    UNet call (`apply_model`) and the decode (`decode_first_stage`), so the
+    rest of the request (sampler update math, host gaps) is what is left.
+    The allocator's peak is read around each of them too."""
     out_lines = []
-    real_prepare = model.prepare_batch
-    cond_events = []
+    events: dict[str, list] = {}
+    peaks: dict[str, float] = {}
+    real = {name: getattr(model, name) for name in ("prepare_batch", "apply_model", "decode_first_stage")}
 
-    def timed_prepare(*a, **k):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = real_prepare(*a, **k)
-        e.record()
-        cond_events.append((s, e))
-        return out
+    def fold_peak(name):
+        peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
 
-    model.prepare_batch = timed_prepare
+    def timed(name):
+        def call(*a, **k):
+            fold_peak("rest")
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real[name](*a, **k)
+            e.record()
+            events[name].append((s, e))
+            fold_peak(name)
+            return out
+        return call
+
+    for name in real:
+        setattr(model, name, timed(name))
     try:
-        for b, seed in [(1, 11), (2, 22)]:
+        for b, seed in [(1, 11), (1, 12), (2, 22)]:
             batch = make_batch(b, seed)
             g = torch.Generator(device=batch["video"].device).manual_seed(seed + 1)
             torch.cuda.reset_peak_memory_stats()
-            cond_events.clear()
+            peaks.clear()
+            for name in real:
+                events[name] = []
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            video = model.sample(batch, generator=g, ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5,
-                                 guidance_rescale=0.7, timestep_spacing="uniform_trailing")
-            end.record()
-            torch.cuda.synchronize()
+            with _ClockSampler() as clocks:
+                start.record()
+                video = model.sample(batch, generator=g, ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5,
+                                     guidance_rescale=0.7, timestep_spacing="uniform_trailing")
+                end.record()
+                torch.cuda.synchronize()
             sec = start.elapsed_time(end) / 1000.0
-            cond_s = sum(s.elapsed_time(e) for s, e in cond_events) / 1000.0
+            ms = {name: [s.elapsed_time(e) for s, e in ev] for name, ev in events.items()}
+            cond_s, dec_s = sum(ms["prepare_batch"]) / 1e3, sum(ms["decode_first_stage"]) / 1e3
+            unet = ms["apply_model"]
+            unet_s = sum(unet) / 1e3
             if tuple(video.shape) != (b, 16, 256, 256, 3) or not torch.isfinite(video).all():
                 _fail(f"{label} request batch {b}: output {tuple(video.shape)} "
                       f"finite={bool(torch.isfinite(video).all())}")
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"  {label} request batch={b}: out {tuple(video.shape)} finite, std={video.std().item():.4f}, "
-                  f"{sec:.3f} s total, {sec / b:.3f} s/video, peak {peak:.2f} GiB, conditioning "
-                  f"{cond_s:.3f} s ({cond_s / sec:.3f} of the request) [{device_line}]", flush=True)
-            out_lines.append(dict(model=label, batch=b, seconds=sec, s_per_video=sec / b, peak_gib=peak,
-                                  conditioning_s=cond_s))
+            fold_peak("rest")
+            peak = max(peaks.values())
+            srt = sorted(unet)
+            slow = sorted(range(len(unet)), key=lambda i: -unet[i])[:3]
+            print(f"  {label} request batch={b} seed={seed}: out {tuple(video.shape)} finite, "
+                  f"std={video.std().item():.4f}, {sec:.3f} s total, {sec / b:.3f} s/video, peak {peak:.2f} GiB, "
+                  f"conditioning {cond_s:.3f} s ({cond_s / sec:.3f} of the request) [{device_line}]", flush=True)
+            print(f"    split: conditioning {cond_s:.3f} s, {len(unet)} UNet calls {unet_s:.3f} s (min "
+                  f"{srt[0]:.1f} / median {srt[len(srt) // 2]:.1f} / max {srt[-1]:.1f} ms; slowest calls "
+                  f"{[(i, round(unet[i], 1)) for i in slow]}), decode {dec_s:.3f} s, rest "
+                  f"{sec - cond_s - unet_s - dec_s:.3f} s; peak GiB by phase "
+                  f"{ {name: round(gib, 2) for name, gib in peaks.items()} }; {clocks.summary}", flush=True)
+            out_lines.append(dict(model=label, batch=b, seed=seed, seconds=sec, s_per_video=sec / b, peak_gib=peak,
+                                  peak_gib_by_phase=dict(peaks), conditioning_s=cond_s, unet_calls_ms=unet,
+                                  decode_s=dec_s, rest_s=sec - cond_s - unet_s - dec_s, clocks=clocks.summary))
     finally:
-        model.prepare_batch = real_prepare
+        for name in real:
+            delattr(model, name)
     return out_lines
 
 

@@ -169,6 +169,12 @@ def test_lines_tile_maps_and_masks_match_jax(label, src, t, h, w, ds):
     np.testing.assert_array_equal(tiles_t, tiles_j)
     assert 0 < tiles_t.mean() < 1
 
+    # K6's work counts: the pairs its bound needs (set bits) lie inside the
+    # subtiles the map leaves on
+    work = dict(heads=2, t=t, num_registers=4)
+    needed = tef.mask_pairs(T_(lines_t), h=h, w=w, downsample=ds, **work)
+    assert 0 < needed <= tef.visible_pairs(T_(tiles_t), hw=h * w, block_k=block_k, **work)
+
     # masks of the first two query frames: each side from its own lines (and,
     # at ds8, the JAX geometry module's matmul form), near-threshold bits only
     lq = 2 * h * w
@@ -181,6 +187,7 @@ def test_lines_tile_maps_and_masks_match_jax(label, src, t, h, w, ds):
         mask_j = np.stack([mask_j, ref])
     for mj in mask_j.reshape(-1, *mask_t.shape):
         assert_near_threshold_only(mask_t, mj, lines_j, h, w, ds, label)
+    assert tef.mask_pairs(T_(lines_t), h=h, w=w, downsample=ds, **work) == (int(mask_t.sum()) + lq * 4) * 2
 
 
 # ------------------------------------------------------- K6's plain twin
@@ -229,7 +236,9 @@ def test_k6_twin_matches_pallas_interpret(label, block_k, nreg, zero):
     ref = np.asarray(jef._epipolar_flash_fwd_impl(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lines, tiles, scale=0.125, block_q=BQ, block_k=block_k,
         **geom))
-    got = tef.epipolar_flash_attention(T_(q), T_(k), T_(v), T_(lines), block_q=BQ, block_k=block_k, **geom)
+    # the port's keys stop after the registers; the Pallas kernel's are padded to a block_k tile
+    got = tef.epipolar_flash_attention(T_(q), T_(kv[0]), T_(kv[1]), T_(lines), block_q=BQ, block_k=block_k,
+                                       **geom)
     assert np.isfinite(ref).all()
     if label == "every row masked":
         assert not np.abs(ref).any() and not got.abs().any()
@@ -240,8 +249,11 @@ def test_k6_twin_matches_pallas_interpret(label, block_k, nreg, zero):
 def test_k6_wrapper_rejects_other_layouts():
     lines = torch.zeros(B, LQ, T, 3)
     q = torch.zeros(B, LQ, 2, 64)
-    k = torch.zeros(B, LQ + BK, 2, 64)
+    k = torch.zeros(B, LQ + R, 2, 64)
     geom = dict(t=T, h=H, w=W, downsample=DS, num_registers=R, block_q=BQ)
+    with pytest.raises(ValueError, match="Lk"):  # keys padded to a block_k tile, the Pallas layout
+        tef.epipolar_flash_attention(q, torch.zeros(B, LQ + BK, 2, 64), torch.zeros(B, LQ + BK, 2, 64), lines,
+                                     block_k=BK, **geom)
     with pytest.raises(ValueError, match="Lk"):
         tef.epipolar_flash_attention(q, k[:, :-1], k[:, :-1], lines, block_k=BK, **geom)
     with pytest.raises(ValueError, match="lines"):
