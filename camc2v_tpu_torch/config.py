@@ -7,8 +7,9 @@ Same field names and defaults as the JAX package's dataclasses
 `nn/epipolar.py::EpipolarConfig`, `camera/pose_encoder.py::PoseEncoderConfig`,
 `models/camera_base.py::CameraControlConfig`/`CamI2VConfig`,
 `models/camcontexti2v.py::AdaptorConfig`/`CamContextI2VConfig`), defined
-here again because the port may not import the JAX package. UNetConfig omits
-the JAX remat knobs (`remat`, `remat_policy`): the port runs inference only.
+here again because the port may not import the JAX package. Of the JAX remat
+policies only `remat_policy=None` (save nothing, recompute every block) is
+ported; the UNet raises on the others.
 """
 
 from __future__ import annotations
@@ -75,6 +76,10 @@ class UNetConfig:
     add_type: str = "add_to_main_branch"
     camera_mode: str = "plucker_epipolar"
     pose_dim: int = 12
+    # training only: rematerialise each UNet block in the backward
+    # (torch.utils.checkpoint), saving nothing inside it
+    remat: bool = True
+    remat_policy: Optional[str] = None
 
     def heads_for(self, ch: int) -> tuple[int, int]:
         if self.num_head_channels == -1:

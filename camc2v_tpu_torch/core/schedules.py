@@ -3,8 +3,9 @@
 Tables are built on the host in float64 and kept as float32 numpy arrays,
 exactly as the JAX package freezes them into f32 device arrays, so every
 per-step scalar of the sampler is a float32 value known before the loop
-starts. Only what generation needs is ported: the DDPM `alphas_cumprod`
-family, the DDIM tables, `timestep_embedding` and `rescale_noise_cfg`.
+starts. Ported: the DDPM `alphas_cumprod` family, the DDIM tables,
+`timestep_embedding`, `rescale_noise_cfg`, and for training `q_sample` and
+`get_v`.
 """
 
 from __future__ import annotations
@@ -152,3 +153,22 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
     std_cfg = noise_cfg.std(dim=axes, keepdim=True, correction=0)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1 - guidance_rescale) * noise_cfg
+
+
+def extract(buf: np.ndarray, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Per-timestep f32 scalars of a schedule table, shaped to broadcast
+    over a rank-`ndim` batch (the reference's `extract_into_tensor`)."""
+    out = torch.as_tensor(buf, device=t.device)[t.long()]
+    return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor):
+    """Forward diffusion q(x_t | x_0). reference: ddpm3d.py:307-312."""
+    return (extract(schedule.sqrt_alphas_cumprod, t, x_start.dim()) * x_start
+            + extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_start.dim()) * noise)
+
+
+def get_v(schedule: DiffusionSchedule, x: torch.Tensor, noise: torch.Tensor, t: torch.Tensor):
+    """v-parameterization target. reference: ddpm3d.py (get_v)."""
+    return (extract(schedule.sqrt_alphas_cumprod, t, x.dim()) * noise
+            - extract(schedule.sqrt_one_minus_alphas_cumprod, t, x.dim()) * x)

@@ -8,40 +8,26 @@
 // shared across heads, key tiles whose mask tile is empty are skipped (the
 // TPU kernel's scalar-prefetched bitmap), keys past Lk are masked (the TPU
 // path padded them to a BLOCK_K multiple), and fully masked rows give 0.
+// For the training backward (K5) it also writes each row's logsumexp, as the
+// TPU kernel's `with_stats` variant does.
 //
 // On the H100 the op is tensor-core bound at the UNet's long spatial
 // self-attention (L=1024) and latency bound at the short cross-attention
 // keys (77 text / 16 image tokens). The body is the simple form shared with
-// K6 (flash_core.cuh); this file supplies the bool-mask policy.
+// K6 (flash_core.cuh); the bool-mask policy lives there too.
 // wgmma/TMA pipelining is later work.
 #include "flash_core.cuh"
 
 namespace {
 
-// K2's mask: an optional (B|1, Lq, Lk) bool mask plus its non-empty-tile map
-struct BoolMask {
-  const uint8_t* mask;
-  const uint8_t* tile_any;
-  long long bstride;
-  int Lq, Lk, nq, nk;
-
-  __device__ bool skip(int b, int qt, int kt) const {
-    return tile_any != nullptr && !tile_any[((long long)b * nq + qt) * nk + kt];
-  }
-  __device__ void stage(int, int, int) const {}
-  __device__ bool visible(int b, int, int qrow, int kj) const {
-    return mask == nullptr || mask[b * bstride + (long long)qrow * Lk + kj];
-  }
-};
-
 __global__ void __launch_bounds__(flash::WARPS * 32)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                  const uint8_t* __restrict__ mask, const uint8_t* __restrict__ tile_any,
-                 bf16* __restrict__ out, int Lq, int Lk, int H, int D, float scale,
+                 bf16* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int H, int D, float scale,
                  long long mask_bstride, int nq, int nk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  BoolMask m{mask, tile_any, mask_bstride, Lq, Lk, nq, nk};
-  flash::attention_body(q, k, v, out, Lq, Lk, Lk, H, D, scale, nk, smem, m);
+  flash::BoolMask m{mask, tile_any, mask_bstride, Lq, Lk, nq, nk};
+  flash::attention_body(q, k, v, out, lse, Lq, Lk, Lk, H, D, scale, nk, smem, m);
 }
 
 }  // namespace
@@ -49,9 +35,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
 // q (B, Lq, H, D), k/v (B, Lk, H, D), out (B, Lq, H, D): contiguous bf16.
 // mask: optional (B or 1, Lq, Lk) bool with batch stride mask_bstride;
 // tile_any: optional (B, ceil(Lq/64), ceil(Lk/64)) uint8 non-empty-tile map.
+// lse: (B, H, Lq) f32 or null (the generation path).
 // `scale` is the bf16-rounded softmax scale. D must be a multiple of 16, <= 128.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* mask,
-                         const void* tile_any, void* out, int B, int Lq, int Lk, int H, int D,
+                         const void* tile_any, void* out, void* lse, int B, int Lq, int Lk, int H, int D,
                          float scale, long long mask_bstride, void* stream) {
   if (D % 16 != 0 || D > 128) return (int)cudaErrorInvalidValue;
   const int nq = (Lq + flash::BQ - 1) / flash::BQ, nk = (Lk + flash::BK - 1) / flash::BK;
@@ -61,7 +48,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   dim3 grid(nq, H, B);
   flash_fwd_kernel<<<grid, flash::WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const uint8_t*)mask, (const uint8_t*)tile_any,
-      (bf16*)out, Lq, Lk, H, D, scale, mask_bstride, nq, nk);
+      (bf16*)out, (float*)lse, Lq, Lk, H, D, scale, mask_bstride, nq, nk);
   RETURN_IF_ERR();
   return 0;
 }

@@ -13,8 +13,10 @@ The adaptor's mask is computed in K6 from the queries' epipolar lines when
 its shape allows (one query per latent pixel, hw >= 256: the flagship), else
 materialised densely (the attention seam sends it to K2 on the card).
 
-Only the generation path is ported (cond frame 0, only the cond and context
-frames VAE-encoded, no CFG dropout). Padded context batches
+Generation (only the cond and context frames VAE-encoded) and training
+(`need_full_z`: all T + N frames encoded, CFG dropout, the adaptor's
+`adaptor_use_mask` phase flag) are ported, cond frame 0. In training the
+adaptor runs on K6 and its gradient on K7. Padded context batches
 (`cond_frames_valid`), the 'max'/'avg' strategies, the Plücker adaptor
 input and cross-normalisation raise.
 
@@ -59,24 +61,26 @@ class CamContextI2V(CamI2V):
             )
         self.zero_conv = Conv(4, 4, (3, 3, 3), dtype=dtype) if config.use_zero_conv_latent_input else None
 
-    def _adaptor_kernel_ok(self, hw: int) -> bool:
+    def _adaptor_kernel_ok(self, hw: int, masking: bool) -> bool:
         """The adaptor's in-kernel mask applies (the JAX rule)."""
         cfg: CamContextI2VConfig = self.config
         a = cfg.adaptor
-        return (a.use_mask and cfg.multi_cond_strategy == "token_concat_latent_epipolar"
+        return (masking and cfg.multi_cond_strategy == "token_concat_latent_epipolar"
                 and a.num_queries == hw and hw >= 256 and (a.num_queries * a.video_length) % ef.BLOCK_Q == 0
                 and (hw % ef.BLOCK_K == 0 or hw % 256 == 0))
 
     def latent_condition(self, batch: dict, z_cond: torch.Tensor, z_add: torch.Tensor,
-                         cond_frame_index: torch.Tensor) -> torch.Tensor:
+                         cond_frame_index: torch.Tensor, adaptor_use_mask: Optional[bool] = None) -> torch.Tensor:
         """(B, T, h, w, 4) c_concat of the latent branch from the cond-frame
-        latent z_cond (B, h, w, 4) and the context latents z_add (B, N, h, w, 4)."""
+        latent z_cond (B, h, w, 4) and the context latents z_add (B, N, h, w, 4).
+        adaptor_use_mask: the training phase flag (None: the config's)."""
         cfg: CamContextI2VConfig = self.config
         b, n_ctx, hl, wl, c = z_add.shape
         t, hw = cfg.video_length, hl * wl
         z_tokens = torch.cat([z_cond[:, None], z_add], dim=1).reshape(b, (1 + n_ctx) * hw, c)
         args = (batch["camera_intrinsics"], batch["RT"], batch["RT_cond"], cond_frame_index)
-        if self._adaptor_kernel_ok(hw):
+        masking = cfg.adaptor.use_mask if adaptor_use_mask is None else adaptor_use_mask
+        if self._adaptor_kernel_ok(hw, masking):
             blk = ef.BLOCK_K if hw % ef.BLOCK_K == 0 else hw
             lines = ef.epipolar_lines(G.conditional_fundamental(*args), hl, wl, 8)
             tiles = ef.epipolar_tile_map(lines, 1 + n_ctx, hl, wl, 8, block_q=ef.BLOCK_Q, block_k=blk)
@@ -87,16 +91,18 @@ class CamContextI2V(CamI2V):
             if cfg.multi_cond_strategy == "token_concat_latent_epipolar" and cfg.adaptor.use_mask:
                 H, W = batch["video"].shape[2:4]
                 mask = G.conditional_epipolar_mask(*args, H, W, downsample=8, config=cfg.epipolar)
-            img_cat = self.adaptor(z_tokens, mask)
+            img_cat = self.adaptor(z_tokens, mask, use_mask=adaptor_use_mask)
         img_cat = img_cat.reshape(b, t, hl, wl, -1)
         if self.zero_conv is not None:
             img_cat = z_cond[:, None] + self.zero_conv(img_cat)
         return img_cat
 
-    def prepare_batch(self, batch: dict, *, prefetch_uncond: bool = False,
-                      perturb_noise: Optional[torch.Tensor] = None):
-        """Generation conditioning (reference camcontexti2v.py:280-491 with
-        need_full_z=False, cond frame 0). Returns (latent shape, cond)."""
+    def prepare_batch(self, batch: dict, generator: Optional[torch.Generator] = None, *,
+                      random_uncond: bool = False, need_full_z: bool = False, prefetch_uncond: bool = False,
+                      perturb_noise: Optional[torch.Tensor] = None, adaptor_use_mask: Optional[bool] = None):
+        """(z, cond), cond frame 0 (reference camcontexti2v.py:280-491); the
+        flags as in `DynamiCrafter.prepare_batch`. need_full_z encodes the
+        T target frames and the N context frames in one VAE call."""
         cfg: CamContextI2VConfig = self.config
         if "cond_frames_valid" in batch:
             raise NotImplementedError("CamContextI2V: padded context frames (cond_frames_valid) are not ported")
@@ -107,23 +113,28 @@ class CamContextI2V(CamI2V):
 
         img = video[:, 0]  # cond_frame_index 0
         latent = cond_frames is not None and self.adaptor is not None
-        frames = torch.cat([img[:, None], cond_frames], dim=1) if latent else img[:, None]
-        z_sel = self.encode_first_stage(frames)  # (B, 1[+N], h, w, 4)
-        z_cond = z_sel[:, 0]
+        if need_full_z:
+            z_all = self.encode_first_stage(torch.cat([video, cond_frames], dim=1) if latent else video, generator)
+            z, z_add = z_all[:, :t], z_all[:, t:]
+            z_cond = z[:, 0]
+        else:
+            frames = torch.cat([img[:, None], cond_frames], dim=1) if latent else img[:, None]
+            z_sel = self.encode_first_stage(frames, generator)  # (B, 1[+N], h, w, 4)
+            z_cond, z_add = z_sel[:, 0], z_sel[:, 1:]
+            z = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
         if latent:
-            c_concat = self.latent_condition(batch, z_cond, z_sel[:, 1:], cond_frame_index)
+            c_concat = self.latent_condition(batch, z_cond, z_add, cond_frame_index, adaptor_use_mask)
         else:
             c_concat = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
 
-        tokens = torch.cat([batch["caption_tokens"].long(), self._null_tokens(video.device)])
-        text = self.encode_text(tokens)
-        cond_emb, null_prompt = text[:-1], text[-1:]
+        prompt_emb, null_prompt, input_mask = self._text_condition(batch, b, generator, random_uncond, video.device)
         if cfg.use_semantic_branch and cond_frames is not None:
             n_ctx = cond_frames.shape[1]
-            imgs = torch.cat([img[:, None], cond_frames], dim=1).reshape(b * (1 + n_ctx), H, W, 3)
+            imgs = input_mask[:, None] * torch.cat([img[:, None], cond_frames], dim=1)
+            imgs = imgs.reshape(b * (1 + n_ctx), H, W, 3)
         else:
             n_ctx = 0
-            imgs = img
+            imgs = input_mask * img
         cond = {}
         if prefetch_uncond:
             emb_all = self.embed_images(torch.cat([imgs, torch.zeros_like(imgs[:1])]))
@@ -133,6 +144,6 @@ class CamContextI2V(CamI2V):
             img_emb = self.embed_images(imgs)
         img_emb = img_emb.reshape(b, (1 + n_ctx) * img_emb.shape[1], -1)
         cond["c_concat"] = c_concat
-        cond["c_crossattn"] = torch.cat([cond_emb, img_emb], dim=1)
+        cond["c_crossattn"] = torch.cat([prompt_emb, img_emb], dim=1)
         cond["camera"] = camera
-        return (b, t, *z_cond.shape[1:]), cond
+        return z, cond

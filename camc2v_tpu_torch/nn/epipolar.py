@@ -114,12 +114,8 @@ class EpipolarCrossAttention(nn.Module):
                 context = torch.cat([context, self._registers(b, context)], dim=1)
             k, v = self.to_k(context), self.to_v(context)
             kw = dict(t=t, h=hh, w=ww, downsample=ds, num_registers=nreg)
-            if ops.route(q):
-                out = ef.epipolar_flash_attention(split(q).contiguous(), split(k).contiguous(),
-                                                  split(v).contiguous(), lines, block_k=block_k,
-                                                  tile_any=tile_any, **kw)
-            else:
-                out = ef.epipolar_attention_plain(split(q), split(k), split(v), lines, **kw)
+            out = ef.epipolar_flash_attention(split(q).contiguous(), split(k).contiguous(), split(v).contiguous(),
+                                              lines, block_k=block_k, tile_any=tile_any, kernel=ops.route(q), **kw)
         else:
             if nreg > 0:
                 context = torch.cat([self._registers(b, context), context], dim=1)

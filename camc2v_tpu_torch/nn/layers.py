@@ -134,18 +134,22 @@ class Downsample(nn.Module):
 
 class TemporalConvBlock(nn.Module):
     """Four (GN+SiLU, conv (3,1,1)) stages on (B, T, H, W, C) plus identity
-    (reference openaimodel3d.py:239-279). Dropout is inference-off."""
+    (reference openaimodel3d.py:239-279); with `deterministic=False`
+    (training) stages 2-4 drop out their conv input."""
 
-    def __init__(self, channels: int, *, dtype=torch.float32):
+    def __init__(self, channels: int, *, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
+        self.dropout = dropout
         for i in range(1, 5):
             setattr(self, f"conv{i}_norm", GroupNorm32(channels))
             setattr(self, f"conv{i}_conv", Conv(channels, channels, (3, 1, 1), dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, *, deterministic: bool = True):
         h = x
         for i in range(1, 5):
             h = getattr(self, f"conv{i}_norm")(h, silu=True)
+            if i > 1:
+                h = F.dropout(h, self.dropout, not deterministic)
             h = getattr(self, f"conv{i}_conv")(h)
         return x + h
 
@@ -153,11 +157,15 @@ class TemporalConvBlock(nn.Module):
 class ResBlock(nn.Module):
     """UNet residual block with timestep-embedding injection, frame-wise on
     (B*T, H, W, C), plus the temporal conv block on the (B, T, ...) view
-    (reference openaimodel3d.py:109-236). Dropout is inference-off."""
+    (reference openaimodel3d.py:109-236). With `deterministic=False`
+    (training) `dropout` applies before out_conv and the temporal conv block
+    drops at 0.1, as in the JAX module; the draws come from the global RNG,
+    whose state `torch.utils.checkpoint` replays in the recompute."""
 
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, *, use_scale_shift_norm: bool = False,
-                 use_temporal_conv: bool = False, dtype=torch.float32):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, *, dropout: float = 0.0,
+                 use_scale_shift_norm: bool = False, use_temporal_conv: bool = False, dtype=torch.float32):
         super().__init__()
+        self.dropout = dropout
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_norm = GroupNorm32(in_ch)
         self.in_conv = Conv(in_ch, out_ch, (3, 3), dtype=dtype)
@@ -167,7 +175,7 @@ class ResBlock(nn.Module):
         self.skip = Conv(in_ch, out_ch, (1, 1), dtype=dtype) if in_ch != out_ch else None
         self.temporal_conv = TemporalConvBlock(out_ch, dtype=dtype) if use_temporal_conv else None
 
-    def forward(self, x, emb, *, batch_size: int):
+    def forward(self, x, emb, *, batch_size: int, deterministic: bool = True):
         h = self.in_conv(self.in_norm(x, silu=True))
         emb_out = self.emb_proj(F.silu(emb))[:, None, None, :]
         if self.use_scale_shift_norm:
@@ -175,11 +183,12 @@ class ResBlock(nn.Module):
             h = F.silu(self.out_norm(h) * (1 + scale) + shift)
         else:
             h = self.out_norm(h + emb_out, silu=True)
-        h = self.out_conv(h)
+        h = self.out_conv(F.dropout(h, self.dropout, not deterministic))
         if self.skip is not None:
             x = self.skip(x)
         h = x + h
         if self.temporal_conv is not None:
             n, hh, ww, c = h.shape
-            h = self.temporal_conv(h.reshape(batch_size, n // batch_size, hh, ww, c)).reshape(n, hh, ww, c)
+            h = self.temporal_conv(h.reshape(batch_size, n // batch_size, hh, ww, c),
+                                   deterministic=deterministic).reshape(n, hh, ww, c)
         return h

@@ -12,6 +12,17 @@ With `use_camera` / `epipolar` every temporal transformer except init_attn
 test) gets the camera branch; `forward(..., camera=...)` routes the
 Plücker feature pyramid by log2 of the block's latent downsample factor, the
 last level to the middle block (reference modified_forwards.py:64-124).
+
+Training (`deterministic=False`, as in JAX): the ResBlocks drop out
+(`UNetConfig.dropout`, 0.1 in the flagship) and, with `remat`, every
+res/spatial/temporal layer of every
+input, middle and output block runs under `torch.utils.checkpoint`
+(non-reentrant, nothing saved inside it), the JAX per-layer `nn.remat` with
+`remat_policy=None`; conv_in, init_attn, the resamplers and the output head
+are not rematerialised, as in JAX. The checkpoint replays the global RNG
+state, so the recompute draws the same dropout masks. The transformers,
+the epipolar attention and the adaptor have dropout 0 in every config, so
+the port gives them no dropout and no flag.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from camc2v_tpu_torch.config import UNetConfig
 from camc2v_tpu_torch.core.schedules import timestep_embedding
@@ -39,6 +51,9 @@ class UNetModel(nn.Module):
         if cfg.camera_mode != "plucker_epipolar":
             raise NotImplementedError(f"UNetModel: camera_mode '{cfg.camera_mode}' (MotionCtrl, CameraCtrl) "
                                       "is not ported")
+        if cfg.remat_policy not in (None, "none"):
+            raise NotImplementedError(f"UNetModel: remat_policy '{cfg.remat_policy}' is not ported (only None: "
+                                      "save nothing inside a block)")
         self.dtype = dtype
         ch = cfg.model_channels
         emb_dim = ch * 4
@@ -70,8 +85,9 @@ class UNetModel(nn.Module):
             )
 
         def resblock(in_ch, out_ch):
-            return ResBlock(in_ch, out_ch, emb_dim, use_scale_shift_norm=cfg.use_scale_shift_norm,
-                            use_temporal_conv=cfg.temporal_conv, dtype=dtype)
+            return ResBlock(in_ch, out_ch, emb_dim, dropout=cfg.dropout,
+                            use_scale_shift_norm=cfg.use_scale_shift_norm, use_temporal_conv=cfg.temporal_conv,
+                            dtype=dtype)
 
         self.conv_in = Conv(cfg.in_channels, ch, (3, 3), dtype=dtype)
         if cfg.addition_attention:
@@ -154,24 +170,33 @@ class UNetModel(nn.Module):
             level = None
         return dict(camera, plucker=level)
 
-    def _apply_block(self, layers, h, emb, context, b, context_mask, camera=None):
+    def _apply_block(self, layers, h, emb, context, b, context_mask, camera=None, deterministic=True):
+        remat = self.config.remat and not deterministic
+
+        def run(module, *args, **kwargs):
+            if remat:
+                return checkpoint(module, *args, use_reentrant=False, **kwargs)
+            return module(*args, **kwargs)
+
         for kind, name in layers:
             module = getattr(self, name)
             if kind == "res":
-                h = module(h, emb, batch_size=b)
+                h = run(module, h, emb, batch_size=b, deterministic=deterministic)
             elif kind == "spatial":
-                h = module(h, context=context, context_mask=context_mask)
+                h = run(module, h, context=context, context_mask=context_mask)
             elif kind == "temporal":
                 n, hh, ww, c = h.shape
-                h = module(h.reshape(b, n // b, hh, ww, c), camera=camera).reshape(n, hh, ww, c)
+                h = run(module, h.reshape(b, n // b, hh, ww, c), camera=camera).reshape(n, hh, ww, c)
             else:
                 h = module(h)
         return h
 
-    def forward(self, x, timesteps, context, fs=None, camera: Optional[dict] = None, *, context_mask=None):
+    def forward(self, x, timesteps, context, fs=None, camera: Optional[dict] = None, *, context_mask=None,
+                deterministic: bool = True):
         """x (B, T, h, w, C_in); timesteps (B,); context (B, L, D); fs (B,);
         camera: the camera payload (`plucker` pyramid, `F`, `epi_prep`) or None;
-        context_mask: optional (B, L) or (B, T, L) bool token validity."""
+        context_mask: optional (B, L) or (B, T, L) bool token validity;
+        deterministic=False: training (dropout, block remat)."""
         cfg = self.config
         b, t, hh, ww, _ = x.shape
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels).to(self.dtype))
@@ -203,12 +228,14 @@ class UNetModel(nn.Module):
             h = self.init_attn(h.reshape(b, t, *h.shape[1:])).reshape(b * t, *h.shape[1:])
         hs = [h]
         for layers, ds in zip(self.input_layout, self.input_ds):
-            h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds))
+            h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds),
+                                  deterministic)
             hs.append(h)
         h = self._apply_block(self.middle_layout, h, emb, context, b, context_mask,
-                              self._camera_for(camera, self.middle_ds, use_last_plucker=True))
+                              self._camera_for(camera, self.middle_ds, use_last_plucker=True), deterministic)
         for layers, ds in zip(self.output_layout, self.output_ds):
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds))
+            h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds),
+                                  deterministic)
         h = self.out_conv(self.out_norm(h, silu=True))
         return h.reshape(b, t, hh, ww, cfg.out_channels).float()

@@ -9,7 +9,11 @@ into `_build/lib<name>-<hash>.so` inside this package (listed in
 
 The hash covers the source files, so an edited kernel rebuilds. `build_all()`
 compiles every kernel in parallel and returns the wall time; `load(name)`
-builds one kernel if needed and returns its `ctypes.CDLL`. Nothing here runs
+builds one kernel if needed and returns its `ctypes.CDLL` for a launch,
+and raises in grad mode: a ctypes launch writes a fresh tensor that autograd
+does not see, so kernels launch only inside their `torch.autograd.Function`
+(whose forward and backward run with grad mode off) or under
+`torch.no_grad()`. Nothing here runs
 at import: the CPU tests import every module, and a machine without the CUDA
 toolkit has no nvcc.
 """
@@ -24,9 +28,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash")
+KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash", "flash_bwd",
+           "epipolar_bwd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -85,6 +92,9 @@ def build_all(names=KERNELS) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"{name}: a kernel launch in grad mode would cut the autograd graph; launch it "
+                           "through its autograd.Function (the wrappers do) or under torch.no_grad()")
     lib = _LIBS.get(name)
     if lib is None:
         path = _lib_path(name)

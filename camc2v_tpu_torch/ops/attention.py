@@ -1,17 +1,20 @@
 """Functional attention seam (`camc2v_tpu/ops/attention.py`).
 
 `dot_product_attention(q, k, v, ...)` over (B, L, H, D) is the one entry
-point every attention module calls. On the card every call without a bias
-goes to the flash kernel K2 (`ops/flash_attention.py`); everywhere else it
-runs `xla_attention`, the plain twin with the JAX plain-path numerics (bf16
-products accumulated in f32, f32 softmax, probabilities cast to the input
-dtype for the PV product).
+point every attention module calls. Every call without a bias and with a
+mask shared by the heads goes through `flash_attention`'s autograd Function:
+on the card the flash kernels K2 (forward, with its logsumexp when a gradient
+is wanted) and K5 (backward), elsewhere and at the sites below their plain
+twins (`flash_fwd_plain`, `flash_bwd_plain`). The other calls run
+`xla_attention`, the plain path with the JAX numerics (bf16 products
+accumulated in f32, f32 softmax, probabilities cast to the input dtype for
+the PV product).
 
 Sites that stay plain on the card, and why:
   * calls with an additive `bias` (the temporal relative-position bias; off
-    in every shipped config): K2 takes masks, not biases;
-  * per-head masks (a mask whose head axis is > 1): K2 shares one mask
-    across heads; no model site builds one;
+    in every shipped config; `xla_attention`): K2 takes masks, not biases;
+  * per-head masks (a mask whose head axis is > 1; `xla_attention`): K2
+    shares one mask across heads; no model site builds one;
   * head dims that are not a multiple of 16 or exceed 128: the VAE
     mid-block's single-head D=512 attention (`nn/vae.py::AEAttnBlock`, one
     call per encode or decode) and the pose encoder's temporal attention at
@@ -65,16 +68,21 @@ def _head_shared_mask(mask: torch.Tensor, b: int, lq: int, lk: int) -> Optional[
 
 
 def dot_product_attention(q, k, v, *, bias=None, mask=None, scale: Optional[float] = None):
-    """Multi-head scaled dot-product attention over (B, L, H, D) -> (B, Lq, H, D)."""
+    """Multi-head scaled dot-product attention over (B, L, H, D) -> (B, Lq, H, D).
+
+    Every call without a bias and with a head-shared mask goes through
+    `flash_attention` (K2 and K5 where the route and head dim allow, their
+    plain twins elsewhere); the rest runs `xla_attention`."""
     from camc2v_tpu_torch.ops import flash_attention as fa
 
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if bias is None and ops.route(q) and fa.flash_supported(q):
+    if bias is None:
         b, lq, _, _ = q.shape
         fmask = None if mask is None else _head_shared_mask(mask, b, lq, k.shape[1])
         if mask is None or fmask is not None:
-            return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=fmask, scale=scale)
+            return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=fmask, scale=scale,
+                                      kernel=ops.route(q) and fa.flash_supported(q))
     return xla_attention(q, k, v, bias=bias, mask=mask, scale=scale)
 
 

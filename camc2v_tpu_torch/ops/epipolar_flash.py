@@ -1,4 +1,5 @@
-"""Epipolar flash attention forward with the mask computed in the kernel: K6.
+"""Epipolar flash attention with the mask computed in the kernels: K6 (forward)
+and K7 (backward).
 
 The CUDA kernel (`csrc/epipolar_flash.cu`) replaces the Pallas kernel
 `camc2v_tpu/ops/epipolar_flash.py::_v2_kernel` (entry
@@ -22,9 +23,18 @@ order, `(a*px + b*py) + c` with each product and sum rounded to f32 (eager
 torch elementwise ops here, `__fmul_rn`/`__fadd_rn` in the kernel), so the
 kernel and its twin agree on every bit.
 
+K7 (`csrc/epipolar_bwd.cu`) replaces the Pallas kernels `_v2_bwd_dq_kernel`
+/ `_v2_bwd_dkv_kernel` (`_epipolar_flash_bwd_impl`, the custom VJP of
+`epipolar_flash_attention`): dq, dk, dv from K6's logsumexp with the mask
+bits recomputed from the lines by the same policy (`csrc/epipolar_mask.cuh`)
+and the same subtile skips. `epipolar_flash_attention` runs `_Epipolar`:
+K6 (with the lse when a gradient is wanted) and K7, or the plain twins;
+lines and tile map get no gradient.
+
 The least time the function needs counts 4*D operations per query-key pair
-whose mask bit is set (`mask_pairs`); the work K6 does after skipping counts
-every pair of the subtiles the map leaves on (`visible_pairs`).
+whose mask bit is set (`mask_pairs`; the backward 10*D); the work K6 does
+after skipping counts every pair of the subtiles the map leaves on
+(`visible_pairs`).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
+from camc2v_tpu_torch.ops.flash_attention import LSE_MASKED, _delta, _ptr, attention_bwd_plain
 
 # canonical tiling of the tile maps (the JAX package's, so maps agree bit for
 # bit): 256-query rows, 1024-key tiles, skip granularity SUBTILE
@@ -149,8 +160,15 @@ def materialize_mask(lines: torch.Tensor, t: int, h: int, w: int, downsample: in
     return _distance_mask(lines.float(), gx, gy, downsample * math.sqrt(2.0) / 2.0)
 
 
+def _chunk_mask(lines, gx, gy, thresh, num_registers):
+    """(B, c, t*hw + num_registers) bool mask of a query chunk, registers last."""
+    mask = _distance_mask(lines.float(), gx, gy, thresh)
+    reg = torch.ones(*mask.shape[:2], num_registers, dtype=torch.bool, device=mask.device)
+    return torch.cat([mask, reg], dim=-1)
+
+
 def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsample: int,
-                             num_registers: int, scale: Optional[float] = None):
+                             num_registers: int, scale: Optional[float] = None, return_lse: bool = False):
     """Plain twin of K6 over the kernel's layout, chunked over queries.
 
     q (B, Lq, H, D); k/v (B, t*h*w + num_registers, H, D), the register keys
@@ -158,7 +176,9 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     its own dtype, products accumulated in f32, masked logits
     -1e30, running max floored at -1e20, probabilities cast to v's dtype for
     the PV product, fully masked rows 0. Chunking keeps the f32 logits at
-    (B, H, chunk, Lk): dense logits at the ds8 site would be 11 GB."""
+    (B, H, chunk, Lk): dense logits at the ds8 site would be 11 GB.
+    return_lse: also the rows' logsumexp (B, H, Lq) f32, +1e30 where a row
+    is fully masked (K6's training output)."""
     b, lq, heads, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -166,12 +186,11 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     thresh = downsample * math.sqrt(2.0) / 2.0
     qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
     kf, vf = k.float(), v.float()
-    reg = torch.ones(b, 1, num_registers, dtype=torch.bool, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty(b, heads, lq, dtype=torch.float32, device=q.device) if return_lse else None
     for s in range(0, lq, TWIN_CHUNK):
         e = min(lq, s + TWIN_CHUNK)
-        mask = _distance_mask(lines[:, s:e].float(), gx, gy, thresh)
-        mask = torch.cat([mask, reg.expand(b, e - s, num_registers)], dim=-1)[:, None]
+        mask = _chunk_mask(lines[:, s:e], gx, gy, thresh, num_registers)[:, None]
         logits = torch.einsum("bqhd,bkhd->bhqk", qs[:, s:e], kf)
         logits = torch.where(mask, logits, NEG_INF)
         m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=M_FLOOR)
@@ -180,24 +199,39 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
         acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf)
         acc = acc / torch.where(l == 0, torch.ones_like(l), l)
         out[:, s:e] = acc.permute(0, 2, 1, 3).to(q.dtype)
-    return out
+        if lse is not None:
+            lse[..., s:e] = torch.where(l == 0, torch.full_like(l, LSE_MASKED), m + torch.log(l))[..., 0]
+    return (out, lse) if return_lse else out
+
+
+def epipolar_bwd_plain(q, k, v, lines, out, lse, dout, *, t: int, h: int, w: int, downsample: int,
+                       num_registers: int, scale: float):
+    """Plain twin of K7: (dq, dk, dv), chunked over queries, each chunk's mask
+    rebuilt from its lines (the twin's bits)."""
+    gx, gy = _pixel_grid(h, w, downsample, q.device)
+    thresh = downsample * math.sqrt(2.0) / 2.0
+    return attention_bwd_plain(q, k, v, out, lse, dout, scale,
+                               lambda s, e: _chunk_mask(lines[:, s:e], gx, gy, thresh, num_registers))
 
 
 def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsample: int, num_registers: int,
                              scale: Optional[float] = None, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
-                             tile_any: Optional[torch.Tensor] = None):
-    """Epipolar attention with the in-kernel mask (the JAX contract).
+                             tile_any: Optional[torch.Tensor] = None, kernel: bool = True):
+    """Epipolar attention with the in-kernel mask (the JAX contract), through
+    `_Epipolar`.
 
     q: (B, Lq, H, D); Lq need not be t*h*w (the adaptor's learned queries
     attend over 1 + n_ctx key frames), lines carry one row per query.
     k, v: (B, t*h*w + num_registers, H, D), the register tokens last.
     lines: (B, Lq, t, 3) from `epipolar_lines`. tile_any: (B, Lq/block_q,
     nK*nsub) from `epipolar_tile_map` with the same block_q/block_k (its
-    trailing block_k tile holds the register column), built here when
-    absent.
+    trailing block_k tile holds the register column), built for the kernels
+    when absent.
 
-    CPU tensors take the plain twin; CUDA tensors launch K6 (bf16, head dim
-    a multiple of 16 up to 128) or raise."""
+    CPU tensors take the plain twins; CUDA tensors launch K6 + K7 (bf16,
+    head dim a multiple of 16 up to 128, else they raise) unless `kernel` is
+    False (the seam's plain route). A layout that block_q / block_k do not
+    tile raises on every route."""
     b, lq, heads, d = q.shape
     hw = h * w
     thw = t * hw
@@ -212,41 +246,116 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     if not (hw % block_k == 0 or (block_k % hw == 0 and thw % block_k == 0)) or lq % block_q:
         raise ValueError(f"epipolar_flash_attention: block_k {block_k} does not tile hw {hw} x t {t}, "
                          f"or Lq {lq} is not a multiple of block_q {block_q}")
-    if q.device.type == "cpu":
-        return epipolar_attention_plain(q, k, v, lines, t=t, h=h, w=w, downsample=downsample,
-                                        num_registers=num_registers, scale=scale)
+    kernel = ops.on_card(q, "epipolar_flash_attention") and kernel
+    geom = dict(t=t, h=h, w=w, downsample=downsample, num_registers=num_registers, scale=scale,
+                block_q=block_q, block_k=block_k)
+    if kernel and tile_any is None:
+        tile_any = epipolar_tile_map(lines, t, h, w, downsample, block_q, block_k)
+    return _Epipolar.apply(q, k, v, lines, tile_any, geom, kernel)
+
+
+class _Epipolar(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, lines, tile_any, geom, kernel):
+        want_lse = any(ctx.needs_input_grad[:3])
+        twin_geom = {n: geom[n] for n in ("t", "h", "w", "downsample", "num_registers", "scale")}
+        if kernel:
+            out, lse = _launch_fwd(q, k, v, lines, tile_any, geom, want_lse=want_lse)
+        else:
+            out, lse = epipolar_attention_plain(q, k, v, lines, return_lse=True, **twin_geom)
+        ctx.kernel, ctx.geom, ctx.twin_geom = kernel, geom, twin_geom
+        if want_lse:
+            ctx.save_for_backward(q, k, v, lines, tile_any, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lines, tile_any, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if ctx.kernel:
+            dq, dk, dv = epipolar_flash_bwd(q, k, v, lines, tile_any, out, lse, dout, ctx.geom)
+        else:
+            dq, dk, dv = epipolar_bwd_plain(q, k, v, lines, out, lse, dout, **ctx.twin_geom)
+        return dq, dk, dv, None, None, None, None
+
+
+def _kernel_args(q, k, v, lines, tile_any, geom, what):
+    """K6/K7's contract: (lines f32, tile map int32, sub, cols, scale as bf16,
+    thresh) after the checks."""
+    b, lq, heads, d = q.shape
+    t, h, w, block_q, block_k = geom["t"], geom["h"], geom["w"], geom["block_q"], geom["block_k"]
+    hw = h * w
     if not q.is_cuda:
-        raise ValueError(f"epipolar_flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device:
-            raise ValueError(f"epipolar_flash_attention: {name} must be contiguous bf16 on {q.device}")
+            raise ValueError(f"{what}: {name} must be contiguous bf16 on {q.device}")
+    lk = k.shape[1]
     if k.shape != (b, lk, heads, d) or v.shape != (b, lk, heads, d):
-        raise ValueError(f"epipolar_flash_attention: k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+        raise ValueError(f"{what}: k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     sub = min(SUBTILE, block_k, hw)
-    if not head_dim_ok(d) or hw % KERNEL_BK or sub % KERNEL_BK or block_q % KERNEL_BQ or num_registers > KERNEL_BK:
-        raise ValueError(f"epipolar_flash_attention: K6 needs a head dim that is a multiple of 16 up to 128 "
+    if (not head_dim_ok(d) or hw % KERNEL_BK or sub % KERNEL_BK or block_q % KERNEL_BQ
+            or geom["num_registers"] > KERNEL_BK):
+        raise ValueError(f"{what}: K6/K7 need a head dim that is a multiple of 16 up to 128 "
                          f"(got {d}), 64-key tiles inside one frame and one subtile (hw {hw}, subtile {sub}), "
                          f"block_q a multiple of 64 (got {block_q}) and at most 64 registers")
     if tile_any is None:
-        tile_any = epipolar_tile_map(lines, t, h, w, downsample, block_q, block_k)
-    cols = (thw + block_k) // sub
+        tile_any = epipolar_tile_map(lines, t, h, w, geom["downsample"], block_q, block_k)
+    cols = (t * hw + block_k) // sub
     if tile_any.shape != (b, lq // block_q, cols):
-        raise ValueError(f"epipolar_flash_attention: tile_any {tuple(tile_any.shape)} vs {(b, lq // block_q, cols)}"
+        raise ValueError(f"{what}: tile_any {tuple(tile_any.shape)} vs {(b, lq // block_q, cols)}"
                          " (built for another tiling?)")
-    lines = lines.to(torch.float32).contiguous()
-    tile_any = tile_any.to(torch.int32).contiguous()
+    scale_bf16 = float(torch.tensor(geom["scale"], dtype=torch.bfloat16))
+    thresh = geom["downsample"] * math.sqrt(2.0) / 2.0
+    return (lines.to(torch.float32).contiguous(), tile_any.to(torch.int32).contiguous(), sub, cols, scale_bf16,
+            thresh)
+
+
+def _launch_fwd(q, k, v, lines, tile_any, geom, *, want_lse: bool):
+    """K6: (out, lse (B, H, Lq) f32 when `want_lse`, else None)."""
+    lines, tile_any, sub, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom,
+                                                                  "epipolar_flash_attention")
+    b, lq, heads, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(b, heads, lq, dtype=torch.float32, device=q.device) if want_lse else None
     fn = _build.load("epipolar_flash").epipolar_flash_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
-    thresh = downsample * math.sqrt(2.0) / 2.0
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lines.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
-             b, lq, lk, heads, d, t, hw, w, num_registers, block_q, sub, cols,
-             scale_bf16, float(downsample), thresh, torch.cuda.current_stream(q.device).cuda_stream)
+             _ptr(lse), b, lq, k.shape[1], heads, d, geom["t"], geom["h"] * geom["w"], geom["w"],
+             geom["num_registers"], geom["block_q"], sub, cols, scale_bf16, float(geom["downsample"]), thresh,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "epipolar_flash_attention")
     ops.LAUNCHES["epipolar_flash"] += 1
-    return out
+    return out, lse
+
+
+def epipolar_flash_bwd(q, k, v, lines, tile_any, out, lse, dout, geom):
+    """K7: (dq, dk, dv) bf16 from K6's out and lse (B, H, Lq) and dout; geom
+    as `epipolar_flash_attention` takes it (t, h, w, downsample,
+    num_registers, scale, block_q, block_k)."""
+    lines, tile_any, sub, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom,
+                                                                  "epipolar_flash_bwd")
+    b, lq, heads, d = q.shape
+    if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous():
+        raise ValueError(f"epipolar_flash_bwd: dout {tuple(dout.shape)} {dout.dtype} vs q {tuple(q.shape)}")
+    if lse.shape != (b, heads, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"epipolar_flash_bwd: lse {tuple(lse.shape)} {lse.dtype} (needs f32 (B, H, Lq))")
+    delta = _delta(out, dout)
+    qs = q * torch.tensor(geom["scale"], dtype=q.dtype)  # the JAX backward's pre-scaled queries
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.load("epipolar_bwd").epipolar_flash_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             lines.data_ptr(), tile_any.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, lq, k.shape[1], heads, d, geom["t"], geom["h"] * geom["w"], geom["w"], geom["num_registers"],
+             geom["block_q"], sub, cols, scale_bf16, float(geom["downsample"]), thresh,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "epipolar_flash_bwd")
+    ops.LAUNCHES["epipolar_bwd"] += 1
+    return dq, dk, dv
 
 
 def mask_pairs(lines: torch.Tensor, *, heads: int, t: int, h: int, w: int, downsample: int,

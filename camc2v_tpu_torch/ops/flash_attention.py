@@ -1,16 +1,27 @@
-"""Flash attention forward over (B, L, H, D): kernel K2.
+"""Flash attention over (B, L, H, D): kernels K2 (forward) and K5 (backward).
 
-The CUDA kernel (`csrc/flash_attention.cu`) replaces the Pallas kernels
+K2 (`csrc/flash_attention.cu`) replaces the Pallas kernels
 `camc2v_tpu/ops/flash_attention.py::_fwd_kernel_nomask` / `_fwd_kernel` /
 `_fwd_kernel_sparse` (entry `flash_attention`): online softmax over key
 tiles, q pre-scaled in bf16, an optional (B, Lq, Lk) bool mask shared by the
 heads, empty mask tiles skipped, keys past Lk masked, fully masked rows 0.
-The log-sum-exp output of the TPU kernel feeds only its training backward
-(K5) and is not produced here.
+When the caller needs a gradient it also writes each row's logsumexp, the
+TPU kernel's `with_stats` output (`_finalize`): m + log l, +1e30 for a fully
+masked row.
+
+K5 (`csrc/flash_bwd.cu`) replaces `_bwd_dq_kernel` / `_bwd_dkv_kernel`
+(`_flash_bwd_impl`, the custom VJP of `flash_attention`): from q, k, v, the
+mask, out, lse and dout it computes dq, dk, dv with delta = rowsum(dout·out)
+in f32, p = exp(s - lse), ds = p·(dp - delta), empty tiles skipped and zero
+gradient for a fully masked row.
+
+`flash_attention` runs `_Flash`, whose forward is K2 (with the lse when a
+gradient is wanted) and whose backward is K5, or the plain twins
+`flash_fwd_plain` / `flash_bwd_plain`. The mask gets no gradient.
 
 Bound on the H100: tensor cores at the long spatial self-attention
 (Lq = Lk = 1024 at the UNet's top level), launch and latency at the short
-cross-attention keys. The plain twin is `ops/attention.py::xla_attention`.
+cross-attention keys.
 """
 
 from __future__ import annotations
@@ -23,10 +34,14 @@ import torch
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
 
-# the kernel's query and key tiles (BQ, BK in csrc/flash_attention.cu): the
+# the kernels' query and key tiles (BQ, BK in csrc/flash_core.cuh): the
 # non-empty-tile map is built on this grid
 BLOCK_Q = 64
 BLOCK_K = 64
+NEG_INF = -1e30
+M_FLOOR = -1e20
+LSE_MASKED = 1e30
+TWIN_CHUNK = 512  # queries per chunk of the backward twin
 
 
 def flash_supported(q: torch.Tensor) -> bool:
@@ -35,48 +50,180 @@ def flash_supported(q: torch.Tensor) -> bool:
     return q.dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
 
 
-def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None, scale: Optional[float] = None):
-    """Attention over (B, L, H, D). mask: (B or 1, Lq, Lk) bool, True = attend.
+def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                    kernel: bool = True):
+    """Attention over (B, L, H, D) through `_Flash`. mask: (B or 1, Lq, Lk)
+    bool, True = attend. CPU tensors take the plain twins; CUDA tensors
+    launch K2 + K5 (which raise on shapes they cannot take) unless `kernel`
+    is False (the seam's plain route)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _Flash.apply(q, k, v, mask, scale, ops.on_card(q, "flash_attention") and kernel)
 
-    CPU tensors take the plain twin; CUDA tensors launch K2."""
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, kernel):
+        want_lse = any(ctx.needs_input_grad[:3])
+        if kernel:
+            out, lse = _launch_fwd(q, k, v, mask, scale, want_lse=want_lse)
+        else:
+            out, lse = flash_fwd_plain(q, k, v, mask, scale)
+        ctx.scale, ctx.kernel = scale, kernel
+        if want_lse:
+            ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        bwd = flash_bwd if ctx.kernel else flash_bwd_plain
+        dq, dk, dv = bwd(q, k, v, mask, out, lse, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _masked_logits(qs, k, mask):
+    """(B, H, Lq, Lk) f32 logits of the pre-scaled queries, -1e30 where the
+    (B|1, Lq, Lk) mask hides a key."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    return s if mask is None else torch.where(mask[:, None], s, NEG_INF)
+
+
+def flash_fwd_plain(q, k, v, mask, scale):
+    """Plain twin of K2 with its lse, (out (B, Lq, H, D), lse (B, H, Lq) f32):
+    the JAX kernel's arithmetic (q pre-scaled in its own dtype, f32 logits,
+    max floored at -1e20, probabilities cast to v's dtype for the PV
+    product, fully masked rows 0 with lse +1e30)."""
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    s = _masked_logits(qs, k, mask)
+    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=M_FLOOR)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    out = (acc / torch.where(l == 0, torch.ones_like(l), l)).permute(0, 2, 1, 3).to(q.dtype)
+    lse = torch.where(l == 0, torch.full_like(l, LSE_MASKED), m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def attention_bwd_chunk(qs, k, v, dout, lse, delta, mask):
+    """One query chunk of the flash backward (the JAX `_bwd_dq_kernel` /
+    `_bwd_dkv_kernel` arithmetic): qs (B, c, H, D) pre-scaled; lse, delta
+    (B, H, c) f32; mask (B|1, c, Lk) bool or None. Returns dqs (B, c, H, D)
+    f32 (dL/dqs) and this chunk's f32 contributions to dk and dv (B, Lk, H, D)."""
+    s = _masked_logits(qs, k, mask)
+    p = torch.exp(s - lse[..., None])  # masked logits and fully masked rows give 0
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dsb = ds.to(k.dtype).float()
+    dqs = torch.einsum("bhqk,bkhd->bqhd", dsb, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qs.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dout.float())
+    return dqs, dk, dv
+
+
+def _delta(out, dout):
+    """rowsum(dout · out) in f32, (B, H, Lq)."""
+    return (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def attention_bwd_plain(q, k, v, out, lse, dout, scale, chunk_mask):
+    """The chunked backward twin of K5 and K7: (dq, dk, dv) in the input
+    dtypes, `chunk_mask(s, e)` giving the (B|1, e - s, Lk) bool mask of
+    queries [s, e) or None; dk and dv summed in f32 over the chunks, dq
+    formed as the JAX backward does (`cast(dqs) * scale` in q's dtype)."""
+    lq = q.shape[1]
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    delta = _delta(out, dout)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for s in range(0, lq, TWIN_CHUNK):
+        e = min(lq, s + TWIN_CHUNK)
+        dqs, dkc, dvc = attention_bwd_chunk(qs[:, s:e], k, v, dout[:, s:e], lse[..., s:e], delta[..., s:e],
+                                            chunk_mask(s, e))
+        dq[:, s:e] = dqs.to(q.dtype) * torch.tensor(scale, dtype=q.dtype)
+        dk += dkc
+        dv += dvc
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, mask, out, lse, dout, scale):
+    """Plain twin of K5: (dq, dk, dv), chunked over queries."""
+    return attention_bwd_plain(q, k, v, out, lse, dout, scale,
+                               lambda s, e: None if mask is None else mask[:, s:e])
+
+
+def _tile_map(mask, b, lq, lk):
+    """(B, ceil(Lq/64), ceil(Lk/64)) uint8 map of the mask's non-empty tiles."""
+    nq, nk = -(-lq // BLOCK_Q), -(-lk // BLOCK_K)
+    padded = torch.zeros(mask.shape[0], nq * BLOCK_Q, nk * BLOCK_K, dtype=torch.bool, device=mask.device)
+    padded[:, :lq, :lk] = mask
+    tile_any = padded.view(-1, nq, BLOCK_Q, nk, BLOCK_K).any(dim=4).any(dim=2)
+    return tile_any.expand(b, nq, nk).contiguous().to(torch.uint8)
+
+
+def _check(q, k, v, mask, what):
+    """The kernels' contract; returns (mask, tile map, mask batch stride)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    if scale is None:
-        scale = d ** -0.5
-    if q.device.type == "cpu":
-        from camc2v_tpu_torch.ops.attention import xla_attention
-
-        return xla_attention(q, k, v, bias=None, mask=None if mask is None else mask[:, None], scale=scale)
     if not q.is_cuda:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be contiguous bf16 on {q.device}")
+            raise ValueError(f"{what}: {name} must be contiguous bf16 on {q.device}")
     if k.shape != (b, lk, h, d) or v.shape != (b, lk, h, d):
-        raise ValueError(f"flash_attention: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+        raise ValueError(f"{what}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     if not flash_supported(q):
-        raise ValueError(f"flash_attention: head dim {d} (needs a multiple of 16, <= 128)")
-    mask_ptr = tile_ptr = 0
-    mask_bstride = 0
-    tile_any = None
-    if mask is not None:
-        if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[1:] != (lq, lk) or mask.shape[0] not in (1, b):
-            raise ValueError(f"flash_attention: mask {tuple(mask.shape)} {mask.dtype} (needs bool (B|1, Lq, Lk))")
-        mask = mask.contiguous()
-        mask_bstride = 0 if mask.shape[0] == 1 else lq * lk
-        nq, nk = -(-lq // BLOCK_Q), -(-lk // BLOCK_K)
-        padded = torch.zeros(mask.shape[0], nq * BLOCK_Q, nk * BLOCK_K, dtype=torch.bool, device=mask.device)
-        padded[:, :lq, :lk] = mask
-        tile_any = padded.view(-1, nq, BLOCK_Q, nk, BLOCK_K).any(dim=4).any(dim=2)
-        tile_any = tile_any.expand(b, nq, nk).contiguous().to(torch.uint8)
-        mask_ptr, tile_ptr = mask.data_ptr(), tile_any.data_ptr()
+        raise ValueError(f"{what}: head dim {d} (needs a multiple of 16, <= 128)")
+    if mask is None:
+        return None, None, 0
+    if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[1:] != (lq, lk) or mask.shape[0] not in (1, b):
+        raise ValueError(f"{what}: mask {tuple(mask.shape)} {mask.dtype} (needs bool (B|1, Lq, Lk))")
+    mask = mask.contiguous()
+    return mask, _tile_map(mask, b, lq, lk), 0 if mask.shape[0] == 1 else lq * lk
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool):
+    """K2: (out, lse (B, H, Lq) f32 when `want_lse`, else None)."""
+    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_attention")
+    b, lq, h, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
     fn = _build.load("flash_attention").flash_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
     scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, tile_ptr, out.data_ptr(),
-             b, lq, lk, h, d, scale_bf16, mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(tile_any), out.data_ptr(), _ptr(lse),
+             b, lq, k.shape[1], h, d, scale_bf16, mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     ops.LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_bwd(q, k, v, mask, out, lse, dout, scale):
+    """K5: (dq, dk, dv) bf16 from K2's out and lse (B, H, Lq) and dout."""
+    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_bwd")
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous():
+        raise ValueError(f"flash_bwd: dout {tuple(dout.shape)} {dout.dtype} vs q {tuple(q.shape)}")
+    if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_bwd: lse {tuple(lse.shape)} {lse.dtype} (needs f32 (B, H, Lq))")
+    delta = _delta(out, dout)
+    qs = q * torch.tensor(scale, dtype=q.dtype)  # the JAX backward's pre-scaled queries
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.load("flash_bwd").flash_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+    scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             _ptr(mask), _ptr(tile_any), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, lq, lk, h, d, scale_bf16, mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_bwd")
+    ops.LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv

@@ -17,6 +17,7 @@ resident-weight budget does not carry over.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -51,31 +52,37 @@ def fused_ln_geglu_ff(x, ln_scale, ln_bias, wp, bp, wf, bf, *, eps: float = 1e-5
     """x + fc2(a * gelu_erf(g)), [a, g] = LN(x) @ wp + bp, over (..., C).
 
     wp: (2*inner, C), wf: (C_out, inner) — the torch Linear layout.
-    CPU tensors take the plain twin; CUDA tensors launch K4."""
+    CPU tensors take the plain twin; CUDA tensors launch K4. The call goes
+    through `ops.recompute_grad`: the backward is the vjp of the plain twin,
+    the JAX `_fused` custom VJP (K4 has no backward kernel)."""
     inner = wf.shape[1]
-    c_in = x.shape[-1]
     c_out = wf.shape[0]
-    x2 = x.reshape(-1, c_in)
-    rows = x2.shape[0]
-    if x.device.type == "cpu":
-        out = ff_plain(x2, ln_scale, ln_bias, wp, bp, wf, bf, inner=inner, eps=eps)
-        return out.reshape(*x.shape[:-1], c_out)
-    if not x.is_cuda:
-        raise ValueError(f"fused_ln_geglu_ff: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16 or not x2.is_contiguous():
+    x2 = x.reshape(-1, x.shape[-1])
+    twin = functools.partial(ff_plain, inner=inner, eps=eps)
+    run = functools.partial(_launch, eps=eps) if ops.on_card(x, "fused_ln_geglu_ff") else twin
+    out = ops.recompute_grad(run, twin, x2, ln_scale, ln_bias, wp, bp, wf, bf)
+    return out.reshape(*x.shape[:-1], c_out)
+
+
+def _launch(x2, ln_scale, ln_bias, wp, bp, wf, bf, *, eps: float):
+    """K4 on the card over (rows, C) (the wrapper's checks, then the ctypes launch)."""
+    inner = wf.shape[1]
+    rows, c_in = x2.shape
+    c_out = wf.shape[0]
+    if x2.dtype != torch.bfloat16 or not x2.is_contiguous():
         raise ValueError("fused_ln_geglu_ff: x must be contiguous bf16")
     if not supported(c_in, inner, c_out) or wp.shape != (2 * inner, c_in):
         raise ValueError(f"fused_ln_geglu_ff: unsupported shape C={c_in} inner={inner} C_out={c_out}")
     wp_b = wp.to(torch.bfloat16).contiguous()
     wf_b = wf.to(torch.bfloat16).contiguous()
     f32 = [t.float().contiguous() for t in (ln_scale, ln_bias, bp, bf)]
-    out = torch.empty(rows, c_out, device=x.device, dtype=x.dtype)
+    out = torch.empty(rows, c_out, device=x2.device, dtype=x2.dtype)
     fn = _build.load("geglu_ff").geglu_ff_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     err = fn(x2.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wp_b.data_ptr(), f32[2].data_ptr(),
              wf_b.data_ptr(), f32[3].data_ptr(), out.data_ptr(), rows, c_in, inner, c_out, float(eps),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "geglu_ff")
     ops.LAUNCHES["geglu_ff"] += 1
-    return out.reshape(*x.shape[:-1], c_out)
+    return out

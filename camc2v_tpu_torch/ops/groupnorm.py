@@ -14,11 +14,16 @@ channels), writes per-(sample, split, group) partial sums to a small f32
 workspace, and every later launch re-reduces those partials. This covers
 every GroupNorm32 site of the model, 4-D and 5-D, the VAE's 256x256 maps
 included.
+
+Training: the seam's gradient is the vector-Jacobian product of the plain
+twin recomputed from the saved input (`ops.recompute_grad`), the JAX
+`_group_norm` custom VJP; K1 has no backward kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,11 +57,19 @@ def _splits(n: int, rows: int) -> int:
     return max(1, min(want, rows // 32))
 
 
-def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
+def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
+                     kernel: bool = True):
     """GroupNorm over (N, ..., C): stats per (sample, group) over all middle
-    dims. CPU tensors take the plain twin; CUDA tensors launch K1."""
-    if x.device.type == "cpu":
-        return group_norm_plain(x, scale, bias, num_groups=num_groups, eps=eps, silu=silu)
+    dims, through `ops.recompute_grad`. CPU tensors take the plain twin;
+    CUDA tensors launch K1 unless `kernel` is False (the seam's plain route)."""
+    kw = dict(num_groups=num_groups, eps=eps, silu=silu)
+    twin = functools.partial(group_norm_plain, **kw)
+    run = functools.partial(_launch, **kw) if ops.on_card(x, "group_norm_fused") and kernel else twin
+    return ops.recompute_grad(run, twin, x, scale, bias)
+
+
+def _launch(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
+    """K1 on the card (the wrapper's checks, then the ctypes launch)."""
     if not x.is_cuda:
         raise ValueError(f"group_norm_fused: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -88,7 +101,8 @@ def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
 
 
 def group_norm(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
-    """The model's GroupNorm seam: K1 on the card, the twin elsewhere."""
-    if ops.route(x, takes=(torch.bfloat16, torch.float32)):
-        return group_norm_fused(x.contiguous(), scale, bias, num_groups=num_groups, eps=eps, silu=silu)
-    return group_norm_plain(x, scale, bias, num_groups=num_groups, eps=eps, silu=silu)
+    """The model's GroupNorm seam: K1 where `ops.route` picks it, the twin
+    elsewhere."""
+    kernel = ops.route(x, takes=(torch.bfloat16, torch.float32))
+    return group_norm_fused(x.contiguous() if kernel else x, scale, bias, num_groups=num_groups, eps=eps,
+                            silu=silu, kernel=kernel)

@@ -17,6 +17,7 @@ the 4x4 level); all of them have T = 16 and head dim 64.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -73,20 +74,26 @@ def fused_temporal_mha(x, wq, wk, wv, wo, bo, *, heads: int, scale: Optional[flo
     wq/wk/wv: (H*D, C) and wo: (C_out, H*D) in the torch Linear layout;
     bo: (C_out,). ln_scale/ln_bias: fuse an f32 LayerNorm of the raw x.
     residual adds the raw x (needs C_out == C). CPU tensors take the plain
-    twin; CUDA tensors launch K3."""
+    twin; CUDA tensors launch K3. The call goes through `ops.recompute_grad`:
+    the backward is the vjp of the plain twin, the JAX `_fused` / `_fused_ln`
+    custom VJP (K3 has no backward kernel)."""
+    inner = wq.shape[0]
+    if scale is None:
+        scale = (inner // heads) ** -0.5
+    if residual and wo.shape[0] != x.shape[-1]:
+        raise ValueError("fused_temporal_mha: residual needs C_out == C_in")
+    kw = dict(heads=heads, scale=scale, residual=residual, eps=eps)
+    twin = functools.partial(mha_plain, **kw)
+    run = functools.partial(_launch, **kw) if ops.on_card(x, "fused_temporal_mha") else twin
+    return ops.recompute_grad(run, twin, x, wq, wk, wv, wo, bo, ln_scale, ln_bias)
+
+
+def _launch(x, wq, wk, wv, wo, bo, ln_scale, ln_bias, *, heads: int, scale: float, residual: bool, eps: float):
+    """K3 on the card (the wrapper's checks, then the ctypes launch)."""
     n, t, c_in = x.shape
     inner = wq.shape[0]
     dim_head = inner // heads
     c_out = wo.shape[0]
-    if scale is None:
-        scale = dim_head ** -0.5
-    if residual and c_out != c_in:
-        raise ValueError("fused_temporal_mha: residual needs C_out == C_in")
-    if x.device.type == "cpu":
-        return mha_plain(x, wq, wk, wv, wo, bo, ln_scale, ln_bias, heads=heads, scale=scale,
-                         residual=residual, eps=eps)
-    if not x.is_cuda:
-        raise ValueError(f"fused_temporal_mha: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("fused_temporal_mha: x must be contiguous bf16")
     if not supported(t, c_in, c_out, dim_head):

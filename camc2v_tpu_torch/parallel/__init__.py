@@ -1,0 +1,1 @@
+"""parallel of the PyTorch port (see camc2v_tpu_torch/__init__.py): the one-device trainer."""

@@ -1,5 +1,6 @@
-"""Production-size presets of the port (values of `camc2v_tpu/presets.py`)
-and `build`, the entry point that makes a model on a device.
+"""Production-size presets of the port (values of `camc2v_tpu/presets.py`),
+the flagship's training recipe, and the entry points that make a model on a
+device: `build` (generation) and `build_for_training`.
 
 reference: configs/models/camcontexti2v_256.yaml and
 configs/baseline/{dynamicrafter,cami2v}_256.yaml. DynamiCrafter-256, CamI2V-256
@@ -7,6 +8,7 @@ and CamContextI2V-256 (the paper's model) are ported; MotionCtrl and
 CameraCtrl are not.
 
     model = build("camcontexti2v_256")  # bf16 on cuda, seeded random weights
+    model = build_for_training("camcontexti2v_256")  # fp32, train mode
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from camc2v_tpu_torch.config import (
     UNetConfig,
     VAEConfig,
 )
+from camc2v_tpu_torch.parallel.trainer import TrainConfig
 
 
 def unet_256(**overrides) -> UNetConfig:
@@ -143,6 +146,20 @@ PRESETS = {
 }
 
 
+def camcontexti2v_256_train() -> TrainConfig:
+    """The flagship's training recipe: `camc2v_tpu/config_yaml.py::
+    build_train_config` of configs/models/camcontexti2v_256.yaml (the port
+    holds the values; it has no yaml reader). Trains the adaptor, the
+    Resampler and the zero conv (97M of 2.85B parameters) with AdamW at
+    1e-4, weight decay 1e-2, global-norm clip 0.5, 4 accumulated
+    micro-batches, frozen weights in bf16, no EMA."""
+    return TrainConfig(
+        learning_rate=1e-4, scale_lr=False, weight_decay=1e-2, grad_clip=0.5, accumulate_grad_batches=4,
+        use_ema=False, ema_decay=0.9999, trainable_patterns=(r"^adaptor/", r"^image_proj/", r"^zero_conv/"),
+        frozen_param_dtype="bfloat16", lr_schedule=None, max_steps=50000,
+    )
+
+
 def _model_class(config: DynamiCrafterConfig):
     """The port's model class of a configuration."""
     from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V
@@ -155,22 +172,39 @@ def _model_class(config: DynamiCrafterConfig):
     return DynamiCrafter
 
 
-def build(name: str, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):
-    """The preset `name` as an inference model on `device`: built there,
-    seeded random weights (`utils.weights.init_weights`, no checkpoint in
-    the repository), Dense/Conv weights stored in `dtype`, eval mode. On
-    the card the matmul numerics are pinned first (`configure_numerics`).
+def _seeded_model(name: str, device, seed: int, dtype):
+    """The preset `name` built on `device` with seeded random f32 weights
+    (`utils.weights.init_weights`, no checkpoint in the repository). On the
+    card the matmul numerics are pinned first (`configure_numerics`).
     Raises on a machine without CUDA unless the caller asks for the CPU."""
     from camc2v_tpu_torch import configure_numerics
-    from camc2v_tpu_torch.utils.weights import cast_for_inference, init_weights
+    from camc2v_tpu_torch.utils.weights import init_weights
 
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("build: CUDA is not available; pass device='cpu' to build on the CPU")
+            raise RuntimeError(f"{name}: CUDA is not available; pass device='cpu' to build on the CPU")
         configure_numerics()
     config = PRESETS[name]()
     with torch.device(device):
         model = _model_class(config)(config, dtype=dtype)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
-    return cast_for_inference(model.eval(), dtype)
+    return model
+
+
+def build(name: str, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):
+    """The preset `name` as an inference model on `device`: seeded random
+    weights, Dense/Conv weights stored in `dtype`, eval mode."""
+    from camc2v_tpu_torch.utils.weights import cast_for_inference
+
+    return cast_for_inference(_seeded_model(name, device, seed, dtype).eval(), dtype)
+
+
+def build_for_training(name: str, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):
+    """The preset `name` as a model to train on `device`: seeded random fp32
+    weights, compute in `dtype`, train mode (dropout and block remat follow
+    `apply_model`'s `deterministic` flag, as in the JAX package).
+    `parallel.trainer.init_train_state` then casts the frozen weights to the
+    recipe's `frozen_param_dtype`, keeping fp32 masters of the trainable
+    subset, and builds the optimizer. Same device rule as `build`."""
+    return _seeded_model(name, device, seed, dtype).train()

@@ -5,7 +5,8 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. device   needs CUDA (no CPU fallback); prints the card's name and power
               limit as nvidia-smi reports them.
-  2. build    compiles the five CUDA kernels (nvcc, sm_90a) from csrc/.
+  2. build    compiles the seven CUDA kernel libraries (nvcc, sm_90a) from
+              csrc/, in parallel.
   3. kernels  each kernel against its plain PyTorch twin on the card, bf16,
               at the generation path's shapes (K2 also through the attention
               seam as the CLIP towers call it; K6 at the UNet's ds8 and ds16
@@ -20,7 +21,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               with the materialised bool mask, for K6); the bound is the
               least time the card could take (larger of bytes over 3.35 TB/s
               and operations over 989 TFLOP/s bf16; K6 counts 4*D operations
-              per set mask bit).
+              per set mask bit). K2 and K6 are also timed with the logsumexp
+              output that training needs. The training backward kernels K5
+              (flash dq/dk/dv) and K7 (epipolar dq/dk/dv, mask recomputed)
+              against their chunked twins at the training sites, on the same
+              forward outputs and logsumexp: dq, dk and dv each within 4 bf16
+              ulps of the twin's max |value|; timed beside the twin, the
+              backward alone of scaled dot-product attention (with the
+              materialised bool mask for K7) and the bound (10*D operations
+              per query-key pair, per set mask bit for K7).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -35,8 +44,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               memory; the request's split into conditioning (`prepare_batch`:
               for CamContextI2V pose encoder, adaptor, CLIP, VAE encode), UNet
               calls, decode and the rest; the SM clock and power meanwhile.
-  6. launches every kernel of each model's path launched during its requests
-              (counts zeroed just before each model's requests, read after).
+  6. launches every kernel of each model's generation path launched during its
+              requests (counts zeroed just before each model's requests,
+              read after).
+  7. train    CamContextI2V-256 training at full width (`presets.
+              build_for_training`, the flagship recipe: adaptor, Resampler and
+              zero conv trained in fp32, the rest frozen in bf16, AdamW, clip
+              0.5, accumulation 4, dropout 0.1, block remat), seeded random
+              weights, 16 frames at 256x256 and 2 context frames: first one
+              micro-step's trainable gradients with the kernels against the
+              same step inside `ops.plain_twins()` (the train step's body with
+              block remat on and ResBlock dropout off, batch 1, relative L2
+              <= 5e-2); then `main.harness.Trainer.fit` for two
+              optimizer steps x 4 micro-steps at batch 2 and one at batch 1,
+              the counts zeroed just before and read just after (every kernel
+              K1-K7 must launch): loss and grad norm finite, trainable
+              parameters changed, frozen ones bit-identical; seconds per
+              micro-step and optimizer step, samples/s, peak memory; the
+              four batch-2 micro-steps of one more optimizer step of
+              `make_train_step` split by CUDA events (conditioning and its
+              parts, forward + loss, backward, optimizer) and one more
+              micro-step profiled by kernel.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -47,7 +75,9 @@ import json
 import os
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 TOL_ULPS = 4  # kernel vs twin: 4 bf16 ulps (2^-6) of the reference's max |value|
@@ -191,7 +221,8 @@ def epipolar_checks(dev, g) -> dict:
         # subtiles the skip map leaves on are the work K6 does after skipping
         needed = ef.mask_pairs(lines, heads=heads, **kw)
         after_skip = ef.visible_pairs(tiles, heads=heads, t=t, hw=hw, num_registers=nreg, block_k=bk)
-        return dict(run=run, twin=twin, q=q, k=k, v=v, lines=lines, kw=kw, skip=1 - tiles.float().mean().item(),
+        return dict(run=run, twin=twin, q=q, k=k, v=v, lines=lines, tiles=tiles, kw=kw,
+                    skip=1 - tiles.float().mean().item(),
                     density=needed / (b * lq * heads * (t * hw + nreg)), pairs=needed, pairs_after_skip=after_skip,
                     after_skip_ms=4 * 64 * after_skip / PEAK_BF16 * 1e3,
                     **_bound(_nbytes(q, k, v, lines, tiles, q), 4 * 64 * needed))
@@ -225,6 +256,15 @@ def epipolar_checks(dev, g) -> dict:
               f"({c['after_skip_ms']:.4f} ms at the bf16 peak)", flush=True)
     main = cases["ds8 B=1 (1,16384,5,64)"]
     plain = _time_ms(main["twin"], reps=3)
+    # the training forward: K6 with its logsumexp, against the twin's
+    geom = dict(main["kw"], scale=0.125, block_q=ef.BLOCK_Q, block_k=ef.BLOCK_K)
+    with_lse = lambda: ef._launch_fwd(main["q"], main["k"], main["v"], main["lines"], main["tiles"],  # noqa: E731
+                                      geom, want_lse=True)
+    out_l, lse = with_lse()
+    out_t, lse_t = ef.epipolar_attention_plain(main["q"], main["k"], main["v"], main["lines"], return_lse=True,
+                                               **main["kw"])
+    errs += [_compare("epipolar with lse ds8 B=1 out", out_l, out_t), _compare("epipolar lse", lse, lse_t)]
+    ms_with_lse = _time_ms(with_lse)
     # the library call: scaled dot-product attention with the materialised
     # bool mask, registers first-class keys (padding dropped)
     q, k, v = main["q"], main["k"], main["v"]
@@ -233,21 +273,16 @@ def epipolar_checks(dev, g) -> dict:
     if int(mask.sum()) * q.shape[2] != main["pairs"]:
         _fail("epipolar: the chunked count of set mask bits disagrees with the materialised mask")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    try:
-        library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
-                           reps=3)
-    except torch.cuda.OutOfMemoryError:
-        library = None
-        print("  library call: out of memory at ds8 B=1, not measured", flush=True)
+    library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3)
     del mask
     torch.cuda.empty_cache()
     print(f"  time epipolar_flash ds8 B=1: kernel {site_ms['ds8 B=1 (1,16384,5,64)']['ms']:.4f} ms, chunked twin "
-          f"{plain:.4f} ms, library {library if library is None else round(library, 4)} ms", flush=True)
+          f"{plain:.4f} ms, library {library:.4f} ms", flush=True)
     with open(os.path.join(OUT_DIR, "epipolar_sites.json"), "w") as f:
         json.dump(site_ms, f, indent=1)
     s = site_ms["ds8 B=1 (1,16384,5,64)"]
-    return dict(max_abs_err=max(errs), ms=s["ms"], plain_ms=plain, twin_ms=plain, bound_ms=s["bound_ms"],
-                bound_by=s["bound_by"], library_ms=library, sites=site_ms)
+    return dict(max_abs_err=max(errs), ms=s["ms"], ms_with_lse=ms_with_lse, plain_ms=plain, twin_ms=plain,
+                bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=site_ms)
 
 
 @torch.no_grad()
@@ -312,7 +347,12 @@ def kernel_checks(dev) -> dict:
     plain = _time_ms(lambda: xla_attention(q, k, v, mask=None, scale=64 ** -0.5))
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+    # the training forward: K2 with its logsumexp, against the twin's
+    out_l, lse = fa._launch_fwd(q, k, v, None, 64 ** -0.5, want_lse=True)
+    out_t, lse_t = fa.flash_fwd_plain(q, k, v, None, 64 ** -0.5)
+    errs += [_compare("flash with lse (32,1024,5,64) out", out_l, out_t), _compare("flash lse", lse, lse_t)]
     res["flash_attention"] = dict(max_abs_err=max(errs), ms=_time_ms(lambda: fa.flash_attention(q, k, v)),
+                                  ms_with_lse=_time_ms(lambda: fa._launch_fwd(q, k, v, None, 0.125, want_lse=True)),
                                   plain_ms=plain, twin_ms=plain, library_ms=library,
                                   **_bound(_nbytes(q, k, v, q), 4 * 64 * 32 * 5 * 1024 * 1024))
 
@@ -377,9 +417,129 @@ def kernel_checks(dev) -> dict:
     res["epipolar_flash"] = epipolar_checks(dev, g)
     for name, r in res.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  time {name}: kernel {r['ms']:.4f} ms, model's plain route {r['plain_ms']:.4f} ms, "
+        lse = f" (with the lse output {r['ms_with_lse']:.4f} ms)" if "ms_with_lse" in r else ""
+        print(f"  time {name}: kernel {r['ms']:.4f} ms{lse}, model's plain route {r['plain_ms']:.4f} ms, "
               f"f32 reference twin {r['twin_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
+    return res
+
+
+def _sdpa_backward_ms(q, k, v, dout, mask=None, reps: int = 5) -> float:
+    """The backward alone of scaled dot-product attention on (B, L, H, D)
+    inputs, the library yardstick of K5 and K7 (the port never calls it):
+    one forward, then the gradient call timed."""
+    with torch.enable_grad():
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        return _time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), dout.transpose(1, 2), retain_graph=True),
+                        reps)
+
+
+def _bwd_bound(q, k, v, out, dout, lse, pairs: int, extra=()) -> dict:
+    """The backward's least time: q, k, v, out, dout read and dq, dk, dv
+    written in bf16, lse and delta in f32 (plus `extra` inputs), and 10*D
+    operations per query-key pair (the score and dp products, then ds.k,
+    ds.q and p.dout)."""
+    return _bound(_nbytes(q, k, v, out, dout) + _nbytes(q, k, v) + 2 * _nbytes(lse) + _nbytes(*extra),
+                  10 * q.shape[-1] * pairs)
+
+
+def _bwd_compare(name: str, got, ref) -> float:
+    return max(_compare(f"{name} d{x}", g, r) for x, g, r in zip("qkv", got, ref))
+
+
+@torch.no_grad()
+def backward_checks(dev) -> dict:
+    """K5 and K7 against their chunked twins at the training sites (batch 2),
+    on the same inputs: q, k, v, dout drawn from a seed, out and lse from the
+    forward kernel (K2, K6)."""
+    from camc2v_tpu_torch.camera import geometry as G
+    from camc2v_tpu_torch.ops import epipolar_flash as ef
+    from camc2v_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    res = {}
+
+    def flash_case(b, lq, lk, h, mask=None):
+        q, k, v, dout = randn(b, lq, h, 64), randn(b, lk, h, 64), randn(b, lk, h, 64), randn(b, lq, h, 64)
+        out, lse = fa._launch_fwd(q, k, v, mask, 0.125, want_lse=True)
+        args = (q, k, v, mask, out, lse, dout, 0.125)
+        pairs = b * h * lq * lk if mask is None else int(mask.sum()) * h
+        return dict(run=lambda: fa.flash_bwd(*args), twin=lambda: fa.flash_bwd_plain(*args), q=q, k=k, v=v,
+                    dout=dout, **_bwd_bound(q, k, v, out, dout, lse, pairs, () if mask is None else (mask,)))
+
+    # the ds32 epipolar level through K2: 16 frames of 8x8 over 4 registers (first) + 1024 keys
+    lines32 = ef.epipolar_lines(bench_F(dev, b=2), 8, 8, 32)
+    mask32 = torch.cat([torch.ones(2, 1024, 4, dtype=torch.bool, device=dev),
+                        ef.materialize_mask(lines32, 16, 8, 8, 32)], dim=-1)
+    flash_sites = {
+        "spatial self (32,1024,5,64)": flash_case(32, 1024, 1024, 5),
+        "text cross (32,1024,5,64) over 77": flash_case(32, 1024, 77, 5),
+        "image cross (32,1024,5,64) over 768": flash_case(32, 1024, 768, 5),
+        "ds32 epipolar masked (2,1024,20,64) over 1028": flash_case(2, 1024, 1028, 20, mask32),
+    }
+    errs, sites = [], {}
+    for name, c in flash_sites.items():
+        errs.append(_bwd_compare(f"flash_bwd {name}", c["run"](), c["twin"]()))
+        sites[name] = dict(ms=_time_ms(c["run"]), twin_ms=_time_ms(c["twin"], reps=2), bound_ms=c["bound_ms"],
+                           bound_by=c["bound_by"])
+        print(f"  time flash_bwd {name}: kernel {sites[name]['ms']:.4f} ms, twin {sites[name]['twin_ms']:.4f} ms, "
+              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
+    main = flash_sites["spatial self (32,1024,5,64)"]
+    library = _sdpa_backward_ms(main["q"], main["k"], main["v"], main["dout"])
+    s = sites["spatial self (32,1024,5,64)"]
+    print(f"  time flash_bwd spatial self: library (SDPA backward) {library:.4f} ms", flush=True)
+    res["flash_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], plain_ms=s["twin_ms"], twin_ms=s["twin_ms"],
+                            bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=sites)
+
+    def epi_case(F, t, h, w, ds, heads, nreg):
+        lines = ef.epipolar_lines(F, h, w, ds)
+        b, lq = lines.shape[:2]
+        bk = ef.choose_block_k(h * w)
+        tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
+        q, dout = randn(b, lq, heads, 64), randn(b, lq, heads, 64)
+        k, v = randn(b, t * h * w + nreg, heads, 64), randn(b, t * h * w + nreg, heads, 64)
+        kw = dict(t=t, h=h, w=w, downsample=ds, num_registers=nreg)
+        geom = dict(kw, scale=0.125, block_q=ef.BLOCK_Q, block_k=bk)
+        out, lse = ef._launch_fwd(q, k, v, lines, tiles, geom, want_lse=True)
+        pairs = ef.mask_pairs(lines, heads=heads, **kw)
+        return dict(run=lambda: ef.epipolar_flash_bwd(q, k, v, lines, tiles, out, lse, dout, geom),
+                    twin=lambda: ef.epipolar_bwd_plain(q, k, v, lines, out, lse, dout, scale=0.125, **kw),
+                    q=q, k=k, v=v, dout=dout, lines=lines, kw=kw,
+                    **_bwd_bound(q, k, v, out, dout, lse, pairs, (lines, tiles)))
+
+    F = bench_F(dev, b=2)
+    cam = bench_camera(2, dev)
+    F_adapt = G.conditional_fundamental(cam["camera_intrinsics"], cam["RT"], cam["RT_cond"],
+                                        torch.zeros(2, dtype=torch.long, device=dev))
+    epi_sites = {
+        "ds8 B=2 (2,16384,5,64)": epi_case(F, 16, 32, 32, 8, 5, 4),
+        "ds8 B=1 (1,16384,5,64)": epi_case(F[:1], 16, 32, 32, 8, 5, 4),
+        "ds16 B=2 (2,4096,10,64)": epi_case(F, 16, 16, 16, 16, 10, 4),
+        "adaptor B=2 (2,16384,8,64) over 3 frames": epi_case(F_adapt, 3, 32, 32, 8, 8, 2),
+        "ds8 zero-F same-frame pairs (1,16384,5,64)": epi_case(bench_F(dev, b=1, perturb=False), 16, 32, 32, 8, 5, 4),
+    }
+    errs, sites = [], {}
+    for name, c in epi_sites.items():
+        errs.append(_bwd_compare(f"epipolar_bwd {name}", c["run"](), c["twin"]()))
+        sites[name] = dict(ms=_time_ms(c["run"], reps=5), bound_ms=c["bound_ms"], bound_by=c["bound_by"])
+        print(f"  time epipolar_bwd {name}: kernel {sites[name]['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']})", flush=True)
+    main = epi_sites["ds8 B=1 (1,16384,5,64)"]
+    twin = _time_ms(main["twin"], reps=1)
+    mask = torch.cat([ef.materialize_mask(main["lines"], 16, 32, 32, 8),
+                      torch.ones(1, main["q"].shape[1], 4, dtype=torch.bool, device=dev)], dim=-1)[:, None]
+    library = _sdpa_backward_ms(main["q"], main["k"], main["v"], main["dout"], mask=mask, reps=2)
+    del mask
+    torch.cuda.empty_cache()
+    s = sites["ds8 B=1 (1,16384,5,64)"]
+    print(f"  time epipolar_bwd ds8 B=1: kernel {s['ms']:.4f} ms, chunked twin {twin:.4f} ms, library (SDPA "
+          f"backward, bool mask) {library:.4f} ms", flush=True)
+    res["epipolar_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], plain_ms=twin, twin_ms=twin,
+                               bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=sites)
+    with open(os.path.join(OUT_DIR, "backward_sites.json"), "w") as f:
+        json.dump({k: v["sites"] for k, v in res.items()}, f, indent=1)
     return res
 
 
@@ -446,35 +606,47 @@ def camcontext_unet_check(model, dev) -> dict:
         step = lambda: model.unet(x[:1], t[:1], ctx[:1], fs[:1], cam1)  # noqa: E731
         step_ms = _time_ms(step, reps=5)
         print(f"  camcontext unet step batch 1: {step_ms:.3f} ms", flush=True)
-        by_kernel = {}
-        try:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                step()
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                dt = getattr(e, "device_time_total", None)
-                if dt is None:
-                    dt = getattr(e, "cuda_time_total", 0)
-                if dt and e.key and not e.key.startswith("aten::") and "Memcpy" not in e.key:
-                    ms, n = by_kernel.get(e.key, (0.0, 0))
-                    by_kernel[e.key] = (ms + dt / 1e3, n + e.count)
-        except RuntimeError as err:  # no profiler on this machine: the step time stands alone
-            print(f"  profiler: {err}", flush=True)
-        total = sum(ms for ms, _ in by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-        with open(os.path.join(OUT_DIR, "camcontext_step_profile.txt"), "w") as f:
-            f.write(f"camcontext UNet step batch 1, device ms by kernel and calls (sum {total:.3f}, "
-                    f"event-timed step {step_ms:.3f})\n")
-            for key, (ms, n) in top:
-                f.write(f"{ms:10.3f} {n:6d}  {key}\n")
-        for key, (ms, n) in top[:12]:
-            print(f"  profile {ms:8.3f} ms {n:5d} calls  {key[:100]}", flush=True)
-        print(f"  profile: device time summed over kernels {total:.3f} ms", flush=True)
+        by_kernel, total = _profile_by_kernel(step, "camcontext_step_profile.txt",
+                                              f"camcontext UNet step batch 1 (event-timed step {step_ms:.3f} ms)")
         k6_ms, k6_calls = by_kernel.get(next((k for k in by_kernel if "epipolar_fwd_kernel" in k), ""), (0.0, 0))
         print(f"  profile: K6 epipolar_fwd_kernel {k6_ms:.3f} ms over {k6_calls} calls", flush=True)
     return dict(step_ms=step_ms, profiled_ms=total, k6_profiled_ms=k6_ms, k6_profiled_calls=k6_calls)
+
+
+def _profile_by_kernel(fn, out_name: str, title: str, top_n: int = 12):
+    """Device time by kernel of one call of `fn` (torch.profiler), written to
+    smoke_out/`out_name` and its top entries printed: ({kernel: (ms, calls)},
+    total ms)."""
+    by_kernel = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            # device-side events only (kernels); a host-side op or autograd
+            # node carries its kernels' device time too and would count it twice
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "cuda_time_total", 0)
+            if dt and e.key and "Memcpy" not in e.key:
+                ms, n = by_kernel.get(e.key, (0.0, 0))
+                by_kernel[e.key] = (ms + dt / 1e3, n + e.count)
+    except RuntimeError as err:  # no profiler on this machine: the event times stand alone
+        print(f"  profiler: {err}", flush=True)
+    total = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(OUT_DIR, out_name), "w") as f:
+        f.write(f"{title}: device ms by kernel and calls (sum {total:.3f})\n")
+        for key, (ms, n) in top:
+            f.write(f"{ms:10.3f} {n:6d}  {key}\n")
+    for key, (ms, n) in top[:top_n]:
+        print(f"  profile {ms:8.3f} ms {n:5d} calls  {key[:100]}", flush=True)
+    print(f"  profile: device time summed over kernels {total:.3f} ms", flush=True)
+    return by_kernel, total
 
 
 def generate(model, make_batch, label: str, device_line: str) -> list:
@@ -550,6 +722,243 @@ def generate(model, make_batch, label: str, device_line: str) -> list:
     return out_lines
 
 
+TRAIN_PATH = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash", "flash_bwd",
+              "epipolar_bwd")
+
+
+class _DropoutOff:
+    """Dropout rate 0 in every ResBlock and temporal conv block for the
+    block's duration: a training-mode step (block remat on, the path
+    `Trainer.fit` runs) that draws no dropout masks."""
+
+    def __init__(self, model):
+        from camc2v_tpu_torch.nn.layers import ResBlock, TemporalConvBlock
+
+        self.blocks = [m for m in model.modules() if isinstance(m, (ResBlock, TemporalConvBlock))]
+        self.rates = [m.dropout for m in self.blocks]
+
+    def __enter__(self):
+        for m in self.blocks:
+            m.dropout = 0.0
+
+    def __exit__(self, *exc):
+        for m, rate in zip(self.blocks, self.rates):
+            m.dropout = rate
+
+
+def _grad_check(model, state, batch, dev) -> dict:
+    """One micro-step's trainable gradients (`trainer.loss_and_grads`, the
+    train step's body: CFG dropout, t and noise from one seed, the UNet in
+    training mode with block remat, so K2/K6 recompute under the checkpoint
+    and feed K5/K7) with the kernels against the same step inside
+    `ops.plain_twins()`, ResBlock dropout off."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.nn import unet3d
+    from camc2v_tpu_torch.parallel import trainer as TR
+
+    checkpoints = []
+    real_checkpoint = unet3d.checkpoint
+
+    def counted(*a, **k):
+        checkpoints.append(1)
+        return real_checkpoint(*a, **k)
+
+    def grads():
+        loss, _, g = TR.loss_and_grads(model, state.params, batch, 5)
+        return loss.detach(), torch.cat([x.flatten() for x in g])
+
+    unet3d.checkpoint = counted
+    try:
+        with _DropoutOff(model):
+            ops.reset_launch_counts()
+            loss_k, g_k = grads()
+            launches = dict(ops.LAUNCHES)
+            with ops.plain_twins():
+                loss_p, g_p = grads()
+    finally:
+        unet3d.checkpoint = real_checkpoint
+    torch.cuda.synchronize()
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    by_part, offset = {}, 0
+    for name, p in zip(state.names, state.params):
+        part = name.split(".")[0]
+        d, r = by_part.get(part, (0.0, 0.0))
+        gk, gp = g_k[offset:offset + p.numel()], g_p[offset:offset + p.numel()]
+        by_part[part] = (d + (gk - gp).square().sum().item(), r + gp.square().sum().item())
+        offset += p.numel()
+    parts = {k: (d / r) ** 0.5 for k, (d, r) in by_part.items()}
+    finite = bool(torch.isfinite(g_k).all())
+    print(f"  gradients batch 1, block remat on ({len(checkpoints)} checkpointed blocks over both runs), "
+          f"kernels vs plain twins: rel_l2={rel:.3e} tol=5e-2 by part { {k: f'{v:.3e}' for k, v in parts.items()} }, "
+          f"loss {loss_k.item():.6f} vs {loss_p.item():.6f}, |g| {g_p.norm().item():.4e}, finite={finite}; "
+          f"kernel launches {launches}", flush=True)
+    if not checkpoints or launches["flash_bwd"] == 0 or launches["epipolar_bwd"] == 0:
+        _fail("train: the gradient check did not run block remat and the backward kernels")
+    if not (finite and rel <= 5e-2):
+        _fail("train: the gradients with the kernels disagree with the plain twins")
+    return dict(rel_l2=rel, rel_l2_by_part=parts, loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+                checkpointed_blocks=len(checkpoints), launches=launches)
+
+
+def train_phase(dev, device_line: str) -> dict:
+    """Phase 7: CamContextI2V-256 training (see the module docstring)."""
+    from camc2v_tpu_torch import ops, presets
+    from camc2v_tpu_torch.main.harness import Trainer
+    from camc2v_tpu_torch.parallel import trainer as TR
+
+    cfg = presets.camcontexti2v_256_train()
+    t0 = time.perf_counter()
+    model = presets.build_for_training("camcontexti2v_256", seed=4321)
+    state = TR.init_train_state(cfg, model)
+    trainable = set(state.names)
+    named = dict(model.named_parameters())
+    n_train = sum(p.numel() for p in state.params)
+    frozen_dtypes = sorted({str(p.dtype) for n, p in named.items() if n not in trainable})
+    print(f"  built in {time.perf_counter() - t0:.1f} s: {n_train / 1e6:.1f}M trainable fp32 parameters of "
+          f"{sum(p.numel() for p in named.values()) / 1e6:.1f}M; frozen dtypes {frozen_dtypes}; resident "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    if any(p.dtype != torch.float32 for p in state.params) or any(
+            p.requires_grad for n, p in named.items() if n not in trainable):
+        _fail("train: trainable masters must be fp32 and frozen parameters must not require grad")
+
+    grad_check = _grad_check(model, state, camcontext_batch(model, 1, 31, dev), dev)
+    torch.cuda.empty_cache()
+
+    frozen_before = {n: p.detach().clone() for n, p in named.items() if n not in trainable}
+    train_before = [p.detach().clone() for p in state.params]
+    marks: list = []
+
+    def batches(b, n, seed):
+        for i in range(n):
+            batch = camcontext_batch(model, b, seed + i, dev)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            yield batch
+
+    runs = {}
+    ops.reset_launch_counts()
+    for b, steps, seed in [(2, 8, 100), (1, 4, 200)]:
+        marks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(model, cfg, batches(b, steps, seed), seed=0, log_every_n_steps=1)
+        with _ClockSampler() as clocks:
+            w0 = time.perf_counter()
+            state = trainer.fit(state, max_steps=state.step + steps)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+        marks.append(end)
+        ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(steps)]
+        hist = trainer.history
+        if len(hist) != steps or not all(np.isfinite([h[k] for h in hist for k in ("loss", "loss_simple",
+                                                                                  "grad_norm")])):
+            _fail(f"train batch {b}: {len(hist)} logged steps, or a loss / grad norm not finite: {hist}")
+        opt_s = [sum(ms[i:i + cfg.accumulate_grad_batches]) / 1e3 for i in range(0, steps, cfg.accumulate_grad_batches)]
+        later = sorted(ms[1:])
+        runs[b] = dict(micro_step_ms=ms, optimizer_step_s=opt_s, wall_s=wall, samples_per_s=b * steps / wall,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+                       clocks=clocks.summary)
+        print(f"  train batch={b}: {steps} micro-steps, ms each {[round(x, 1) for x in ms]} (median after the "
+              f"first {later[len(later) // 2]:.1f}), s per optimizer step {[round(x, 3) for x in opt_s]}, "
+              f"{b * steps / wall:.3f} samples/s ({wall:.2f} s wall), peak {runs[b]['peak_gib']:.2f} GiB "
+              f"[{device_line}]; {clocks.summary}", flush=True)
+        print(f"    loss {[round(h['loss'], 5) for h in hist]} grad_norm {[round(h['grad_norm'], 4) for h in hist]}",
+              flush=True)
+    launches = dict(ops.LAUNCHES)
+    print(f"[7 launches] train {launches}", flush=True)
+    if state.step != 12 or state.updates != 3 or not all(launches[n] > 0 for n in TRAIN_PATH):
+        _fail(f"train: steps {state.step} updates {state.updates}, or a kernel of the path never launched: "
+              f"{launches}")
+    changed = sum(not torch.equal(p, p0) for p, p0 in zip(state.params, train_before))
+    frozen_same = all(torch.equal(named[n], p0) for n, p0 in frozen_before.items())
+    print(f"  {changed} of {len(state.params)} trainable tensors changed; frozen bit-identical: {frozen_same}",
+          flush=True)
+    if changed < len(state.params) // 2 or not frozen_same:
+        _fail("train: the optimizer did not move the trainable parameters, or it moved frozen ones")
+    del frozen_before, train_before
+
+    split = _train_split(model, state, cfg, dev)
+    return dict(device=device_line, trainable_params=n_train, grad_check=grad_check, runs=runs, launches=launches,
+                split=split)
+
+
+def _train_split(model, state, cfg, dev) -> dict:
+    """One optimizer step (4 batch-2 micro-steps) of `make_train_step`, the
+    step `Trainer.fit` runs, each micro-step split by CUDA events recorded
+    around the model's own calls: conditioning (start to `p_losses`: VAE
+    encode of T + N frames, CLIP text, CLIP vision + Resampler, camera
+    payload, adaptor + zero conv, the t and noise draws), forward + loss
+    (`p_losses`), backward (to `apply_gradients`: the gradients and their
+    global norm) and the optimizer (`apply_gradients`: accumulation, and on
+    the 4th micro-step clip + AdamW); then one more micro-step profiled by
+    kernel."""
+    from camc2v_tpu_torch.parallel import trainer as TR
+
+    names = ("encode_first_stage", "encode_text", "embed_images", "camera_condition", "latent_condition",
+             "p_losses")
+    real = {n: getattr(model, n) for n in names}
+    real_apply = TR.apply_gradients
+    spans: list = [{}]  # per micro-step: name -> [(start, end) events]
+
+    def timed(name, fn):
+        def call(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans[-1].setdefault(name, []).append((s, e))
+            return out
+        return call
+
+    step = TR.make_train_step(model, cfg)
+    batch = camcontext_batch(model, 2, 300, dev)
+    k = cfg.accumulate_grad_batches
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(k + 1)]
+    for n in names:
+        setattr(model, n, timed(n, real[n]))
+    TR.apply_gradients = timed("apply_gradients", real_apply)
+    try:
+        while state.step % k:  # start at an accumulation window's first micro-step
+            step(state, batch, 7)
+        spans.clear()
+        torch.cuda.reset_peak_memory_stats()
+        marks[0].record()
+        for i in range(k):
+            spans.append({})
+            step(state, batch, 7)
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            delattr(model, n)
+        TR.apply_gradients = real_apply
+    micro = []
+    for i, sp in enumerate(spans):
+        [(fs, fe)], [(os_, oe)] = sp["p_losses"], sp["apply_gradients"]
+        micro.append(dict(
+            total_ms=marks[i].elapsed_time(marks[i + 1]), conditioning_ms=marks[i].elapsed_time(fs),
+            forward_loss_ms=fs.elapsed_time(fe), backward_ms=fe.elapsed_time(os_), optimizer_ms=os_.elapsed_time(oe),
+            parts_ms={n: sum(a.elapsed_time(b) for a, b in sp.get(n, [])) for n in names[:-1]}))
+    out = dict(micro_steps=micro, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for i, m in enumerate(micro):
+        part = m["parts_ms"]
+        print(f"  split of batch-2 micro-step {i + 1}/{k} of an optimizer step ({m['total_ms']:.1f} ms): "
+              f"conditioning {m['conditioning_ms']:.1f} ms (VAE encode {part['encode_first_stage']:.1f}, CLIP text "
+              f"{part['encode_text']:.1f}, CLIP vision + Resampler {part['embed_images']:.1f}, camera payload "
+              f"{part['camera_condition']:.1f}, adaptor + zero conv {part['latent_condition']:.1f}), UNet forward + "
+              f"loss {m['forward_loss_ms']:.1f} ms, backward + grad norm {m['backward_ms']:.1f} ms, optimizer "
+              f"{m['optimizer_ms']:.1f} ms", flush=True)
+    print(f"  peak over the optimizer step {out['peak_gib']:.2f} GiB", flush=True)
+    by_kernel, prof_total = _profile_by_kernel(lambda: step(state, batch, 8), "train_step_profile.txt",
+                                               "CamContextI2V training micro-step batch 2", top_n=16)
+    out["profiled_ms"] = prof_total
+    out["profile_top"] = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()), key=lambda x: -x[1])[:25]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("CUDA is not available (this smoke run needs the GPU; there is no CPU fallback)")
@@ -568,6 +977,8 @@ def main() -> None:
     print("[3 kernels] kernel vs plain twin, bf16", flush=True)
     dc = presets.build("dynamicrafter_256", seed=1234)  # pins the card's numerics before the checks
     checks = kernel_checks(dev)
+    checks.update(backward_checks(dev))
+    torch.cuda.empty_cache()
 
     print("[4 unet] full-width denoise steps", flush=True)
     unet_check(dc, dev)
@@ -595,15 +1006,22 @@ def main() -> None:
     cc = presets.build("camcontexti2v_256", seed=4321)
     ops.reset_launch_counts()
     requests += generate(cc, lambda b, seed: camcontext_batch(cc, b, seed, dev), "camcontexti2v", device_line)
-    launches = dict(ops.LAUNCHES)
-    print(f"[6 launches] dynamicrafter {dc_launches}; camcontexti2v {launches}", flush=True)
+    cc_launches = dict(ops.LAUNCHES)
+    print(f"[6 launches] dynamicrafter {dc_launches}; camcontexti2v {cc_launches}", flush=True)
     dc_path = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff")
-    if not all(dc_launches[n] > 0 for n in dc_path) or not all(n > 0 for n in launches.values()):
-        _fail(f"a kernel of a path was never launched: {dc_launches} / {launches}")
+    if not all(dc_launches[n] > 0 for n in dc_path) or not all(cc_launches[n] > 0 for n in dc_path + (
+            "epipolar_flash",)):
+        _fail(f"a kernel of a generation path was never launched: {dc_launches} / {cc_launches}")
+    del cc
+    torch.cuda.empty_cache()
+
+    print("[7 train] CamContextI2V-256 training, full width", flush=True)
+    train = train_phase(dev, device_line)
+    launches = train["launches"]
 
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
-                       launches_camcontexti2v=launches, kernels=checks), f, indent=1)
+                       launches_camcontexti2v=cc_launches, train=train, kernels=checks), f, indent=1)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -611,11 +1029,15 @@ def main() -> None:
                                "camc2v_tpu/ops/temporal_attention.py:120"),
         "geglu_ff": ("camc2v_tpu_torch/csrc/geglu_ff.cu", "camc2v_tpu/ops/geglu_ff.py:92"),
         "epipolar_flash": ("camc2v_tpu_torch/csrc/epipolar_flash.cu", "camc2v_tpu/ops/epipolar_flash.py:226"),
+        "flash_bwd": ("camc2v_tpu_torch/csrc/flash_bwd.cu", "camc2v_tpu/ops/flash_attention.py:329"),
+        "epipolar_bwd": ("camc2v_tpu_torch/csrc/epipolar_bwd.cu", "camc2v_tpu/ops/epipolar_flash.py:666"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "twin_ms", "bound_ms", "bound_by", "library_ms")
+    # launches: the training run (this slice's path, every kernel); the
+    # CamContextI2V generation run's counts beside them
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             **{k: checks[name][k] for k in keys})
+             launches_generation=cc_launches[name], **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
     print(device_line, flush=True)
