@@ -29,7 +29,8 @@ epipolar_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
   LineMask m = make_line_mask(lines, tile_any, Lq, t, hw, w, nreg, block_q, sub, cols, ds, thresh, stage);
   const int lk_valid = t * hw + nreg;
   const int nk = (lk_valid + flash::BK - 1) / flash::BK;
-  flash::attention_body(q, k, v, out, lse, Lq, Lk, lk_valid, H, D, scale, nk, smem, m);
+  flash::attention_body(q, k, v, out, lse, Lq, Lk, lk_valid, H, D, scale, nk, smem, m, blockIdx.x, blockIdx.y,
+                        blockIdx.z);
 }
 
 }  // namespace

@@ -62,6 +62,8 @@ struct LineMask {
     const float dist = fabsf(__fadd_rn(__fadd_rn(__fmul_rn(l[0], kx[i]), __fmul_rn(l[1], ky[i])), l[2]));
     return dist < thresh;
   }
+
+  __device__ float score(int, int, float s) const { return s; }
 };
 
 // the policy over the staging area at `stage` (STAGE_FLOATS floats)

@@ -27,7 +27,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
                  long long mask_bstride, int nq, int nk) {
   extern __shared__ __align__(128) unsigned char smem[];
   flash::BoolMask m{mask, tile_any, mask_bstride, Lq, Lk, nq, nk};
-  flash::attention_body(q, k, v, out, lse, Lq, Lk, Lk, H, D, scale, nk, smem, m);
+  flash::attention_body(q, k, v, out, lse, Lq, Lk, Lk, H, D, scale, nk, smem, m, blockIdx.x, blockIdx.y,
+                        blockIdx.z);
 }
 
 }  // namespace

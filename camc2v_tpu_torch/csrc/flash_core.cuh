@@ -25,7 +25,11 @@
 //   void stage(b, q0, j0)           per-tile block-wide preparation, between
 //                                   the two barriers that bracket the loads;
 //   bool visible(b, r, qrow, kj)    the bit of query qrow (row r of the query
-//                                   tile) and key kj.
+//                                   tile) and key kj;
+// and, for the forward, a fourth:
+//   float score(r, kj, s)           the logit of a visible pair from its
+//                                   scaled product s (s itself, or s plus an
+//                                   additive penalty).
 #pragma once
 
 #include "common.cuh"
@@ -58,6 +62,7 @@ struct BoolMask {
   __device__ bool visible(int b, int, int qrow, int kj) const {
     return mask == nullptr || mask[b * bstride + (long long)qrow * Lk + kj];
   }
+  __device__ float score(int, int, float s) const { return s; }
 };
 
 // shared memory of the forward core; a mask policy's own staging area follows it
@@ -134,15 +139,16 @@ __device__ __forceinline__ void mma_pb_acc(const bf16* p, const bf16* b, int ld,
   }
 }
 
-// Forward. q (B, Lq, H, D); k/v (B, Lk, H, D) of which the first lk_valid
-// keys exist. lse (B, H, Lq) f32 is written when not null (m + log l, or
-// +1e30 for a fully masked row).
+// Forward of the block that owns query tile qt of head h in batch b.
+// q (B, Lq, H, D); k/v (B, Lk, H, D) of which the first lk_valid keys exist.
+// lse (B, H, Lq) f32 is written when not null (m + log l, or +1e30 for a
+// fully masked row).
 template <class Mask>
 __device__ __forceinline__ void attention_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                const bf16* __restrict__ v, bf16* __restrict__ out,
                                                float* __restrict__ lse, int Lq, int Lk, int lk_valid, int H,
-                                               int D, float scale, int nk, unsigned char* smem, Mask& mask) {
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+                                               int D, float scale, int nk, unsigned char* smem, Mask& mask,
+                                               int qt, int h, int b) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ldq = D + 8, lda = D + 4;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -184,7 +190,7 @@ __device__ __forceinline__ void attention_body(const bf16* __restrict__ q, const
     for (int j = 0; j < 32; ++j) {
       const int kj = j0 + half * 32 + j;
       const bool ok = kj < lk_valid && qrow < Lq && mask.visible(b, rb, qrow, kj);
-      const float s = ok ? srow[j] : NEG_INF;
+      const float s = ok ? mask.score(rb, kj, srow[j]) : NEG_INF;
       vals[j] = s;
       mx = fmaxf(mx, s);
     }

@@ -2,8 +2,9 @@
 
 One `nn.Module` owns the UNet, the VAE, the CLIP text and vision towers and
 the Resampler; methods mirror the JAX assembly's generation path:
-`prepare_batch` -> `build_uncond` -> `build_guided_fn` -> `ddim_sample` ->
-`decode_first_stage`, driven by `sample`; and its training loss:
+`prepare_batch` -> `build_uncond` -> `build_guided_fn` -> `ddim_sample` (or
+`dpmpp_2m_sample`) -> `decode_first_stage`, driven by `sample`; and its
+training loss:
 `prepare_batch(random_uncond=True, need_full_z=True)` -> `p_losses`
 (q_sample, the UNet with `deterministic=False`, `get_loss`), driven by
 `training_loss`. The random draws of the loss (VAE posterior sample, CFG
@@ -26,11 +27,13 @@ from typing import Any, Optional, Sequence
 import torch
 from torch import nn
 
+from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.config import DynamiCrafterConfig
 from camc2v_tpu_torch.core import distributions as D
 from camc2v_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule, q_sample, rescale_noise_cfg
-from camc2v_tpu_torch.models.sampler import ddim_sample
+from camc2v_tpu_torch.models.sampler import ddim_sample, dpmpp_2m_sample
 from camc2v_tpu_torch.nn.clip import CLIPTextTower, CLIPVisionTower, clip_preprocess
+from camc2v_tpu_torch.nn.epipolar import add_precomputed_penalties
 from camc2v_tpu_torch.nn.resampler import Resampler
 from camc2v_tpu_torch.nn.unet3d import UNetModel
 from camc2v_tpu_torch.nn.vae import AutoencoderKL
@@ -235,18 +238,56 @@ class DynamiCrafter(nn.Module):
             noise = noise + cfg.noise_strength * offset
         return self.p_losses(z, cond, t, noise, self.get_fs(batch))
 
+    def _pad_uncond_for_fusion(self, cond: dict, uc: dict) -> Optional[tuple[dict, dict]]:
+        """(cond, uc) with the shorter single-frame-set uncond context padded
+        to cond's length, so both stack into one batch-2B call, exactly
+        (the JAX `_pad_uncond_for_fusion`): the UNet routes the uncond's
+        image tokens per frame, and the padded form says the same with a
+        (B, T, L) validity mask (frame i sees the text and its own image
+        tokens, the padding nothing), beside an all-true mask for cond.
+        None when the uncond is not of that form."""
+        ucfg = self.config.unet
+        lt, ipf, t = ucfg.text_context_len, ucfg.img_tokens_per_frame, self.config.video_length
+        cc, cu = cond["c_crossattn"], uc["c_crossattn"]
+        b, lc = cc.shape[:2]
+        lu = cu.shape[1]
+        if lu >= lc or lu != lt + t * ipf:
+            return None
+        dev = cu.device
+        uc = dict(uc)
+        uc["c_crossattn"] = torch.cat([cu, cu.new_zeros(b, lc - lu, cu.shape[-1])], dim=1)
+        tok = torch.arange(lc - lt, device=dev)
+        frame = torch.arange(t, device=dev)
+        per_frame = (tok[None] >= frame[:, None] * ipf) & (tok[None] < (frame[:, None] + 1) * ipf)
+        uc_mask = torch.cat([torch.ones(t, lt, dtype=torch.bool, device=dev), per_frame], dim=1)
+        uc["c_crossattn_mask"] = uc_mask[None].expand(b, t, lc)
+        cond = dict(cond)
+        cmask = cond.get("c_crossattn_mask")
+        cond["c_crossattn_mask"] = (torch.ones(b, t, lc, dtype=torch.bool, device=dev) if cmask is None
+                                    else cmask.bool()[:, None].expand(b, t, lc))
+        return cond, uc
+
     def build_guided_fn(self, cond: dict, uc: Optional[dict], fs, *, guidance_scale: float = 1.0,
                         guidance_rescale: float = 0.0):
         """Guided denoiser closure. When the cond and uncond contexts have one
-        shape, both run as ONE batch-2B UNet call, the camera payload stacked
-        with them (the uncond shares cond's geometry); otherwise (CamContextI2V's
-        multi-frame context against a single-frame uncond) two calls."""
+        shape, both run as ONE batch-2B UNet call, everything stacked but the
+        epipolar penalties, which the uncond shares with cond (K6p reads the
+        (B, ...) copy for the 2B batch); otherwise (CamContextI2V's
+        multi-frame context against a single-frame uncond) two calls, or with
+        `CAMC2V_FUSED_CFG=1` the uncond padded to cond's length
+        (`_pad_uncond_for_fusion`) and one call."""
         if uc is None or guidance_scale == 1.0:
             return lambda x, t: self.apply_model(x, t, cond, fs)
         b = cond["c_concat"].shape[0]
+        if uc["c_crossattn"].shape != cond["c_crossattn"].shape and ops.switch_on("CAMC2V_FUSED_CFG"):
+            padded = self._pad_uncond_for_fusion(cond, uc)
+            if padded is not None:
+                cond, uc = padded
         if uc["c_crossattn"].shape == cond["c_crossattn"].shape:
-            keys = ("c_concat", "c_crossattn") + (("camera",) if "camera" in cond else ())
-            stacked = {k: _stack(cond[k], uc[k]) for k in keys}
+            cond, shared = _strip_penalties(cond)
+            stacked = _stack(cond, _strip_penalties(uc)[0])
+            for ds, pen in shared.items():
+                stacked["camera"]["epi_prep"][ds]["penalties"] = pen
             fs2 = None if fs is None else torch.cat([fs, fs])
 
             def eps_pair(x, t):
@@ -268,21 +309,33 @@ class DynamiCrafter(nn.Module):
     # ----------------------------------------------------------------- sample
     @torch.no_grad()
     def sample(self, batch: dict, *, generator: Optional[torch.Generator] = None, ddim_steps: int = 25,
-               ddim_eta: float = 1.0, guidance_scale: float = 7.5, guidance_rescale: float = 0.7,
-               timestep_spacing: str = "uniform_trailing", decode: bool = True,
+               ddim_eta: float = 1.0, sampler: str = "ddim", guidance_scale: float = 7.5,
+               guidance_rescale: float = 0.0, timestep_spacing: str = "uniform", decode: bool = True,
                camera_cfg: float = 1.0, x_T: Optional[torch.Tensor] = None,
                step_noise: Optional[Sequence[torch.Tensor]] = None, perturb_noise: Optional[torch.Tensor] = None):
-        """DDIM CFG sampling -> decoded video (B, T, H, W, 3).
+        """CFG sampling -> decoded video (B, T, H, W, 3), with the JAX
+        package's keyword defaults. sampler: "ddim" (eta noise from
+        `generator` or `step_noise`) or "dpmpp_2m" (deterministic,
+        `ddim_eta` ignored) over the DDIM timestep table.
 
         x_T / step_noise: optional initial latents and per-step standard-normal
         draws in place of `generator`; perturb_noise: the camera models'
         zero-translation perturbation draws (test hooks)."""
         if camera_cfg != 1.0:
             raise NotImplementedError("sample: camera_cfg != 1.0 (the camera-free third pass) is not ported")
+        if sampler == "ddpm":
+            raise NotImplementedError("sample: the ancestral 'ddpm' loop is not ported")
+        if sampler not in ("ddim", "dpmpp_2m"):
+            raise ValueError(f"unknown sampler {sampler!r} (ddim | dpmpp_2m | ddpm)")
         z, cond = self.prepare_batch(batch, prefetch_uncond=guidance_scale != 1.0, perturb_noise=perturb_noise)
         shape = z.shape
         b = shape[0]
         fs = self.get_fs(batch)
+        # one camera geometry serves every step: the epipolar masks can be
+        # built once as K6p's penalties (CAMC2V_EPI_PRECOMP)
+        cam, epi = cond.get("camera"), getattr(self.config, "epipolar", None)
+        if cam is not None and epi is not None and cam.get("epi_prep"):
+            cam["epi_prep"] = add_precomputed_penalties(cam["epi_prep"], epi, self.config.video_length)
         uc = self.build_uncond(cond, b, batch["video"].shape[2:4]) if guidance_scale != 1.0 else None
         cond.pop("_uncond", None)
         fn = self.build_guided_fn(cond, uc, fs, guidance_scale=guidance_scale,
@@ -291,8 +344,23 @@ class DynamiCrafter(nn.Module):
         device = batch["video"].device
         if x_T is None:
             x_T = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        samples = ddim_sample(ddim, x_T, fn, generator=generator, step_noise=step_noise)
+        if sampler == "ddim":
+            samples = ddim_sample(ddim, x_T, fn, generator=generator, step_noise=step_noise)
+        else:
+            samples = dpmpp_2m_sample(ddim, x_T, fn)
         return self.decode_first_stage(samples) if decode else samples
+
+
+def _strip_penalties(cond: dict) -> tuple[dict, dict]:
+    """(cond without the epipolar penalties, {ds: penalties}): the payload
+    to stack for the fused batch, and the batch-shared part kept once."""
+    cam = cond.get("camera")
+    if not isinstance(cam, dict) or not cam.get("epi_prep"):
+        return cond, {}
+    prep = cam["epi_prep"]
+    shared = {ds: e["penalties"] for ds, e in prep.items() if "penalties" in e}
+    strip = {ds: {k: v for k, v in e.items() if k != "penalties"} for ds, e in prep.items()}
+    return dict(cond, camera=dict(cam, epi_prep=strip)), shared
 
 
 def _stack(a: Any, b: Any) -> Any:

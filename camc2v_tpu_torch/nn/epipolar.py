@@ -15,10 +15,15 @@ front, so on the card they reach K2 with a (B, Lq, Lk) bool mask: the ds32
 level (1024 tokens) and the middle block (ds64, 256 tokens), and the
 adaptor's dense-mask path (`camera/adaptors.py`). Both paths give the same
 attention; a model built in f32 runs the plain twins (`ops.route`).
+
+With `CAMC2V_EPI_PRECOMP` set (anything but "0", as the JAX package reads
+it), `sample` adds each in-kernel level's mask as bf16 additive penalties
+(`add_precomputed_penalties`), and those levels take K6p instead of K6.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -74,15 +79,43 @@ def prepare_plain_epipolar(F: torch.Tensor, cfg: EpipolarConfig) -> dict[int, di
     return prep
 
 
+def add_precomputed_penalties(prep: dict[int, dict], cfg: EpipolarConfig, t: int,
+                              max_level_bytes: Optional[int] = None) -> dict[int, dict]:
+    """The request's epipolar prep with each in-kernel level's mask as bf16
+    additive penalties (`ops/epipolar_flash.py::materialize_penalties`), for
+    K6p (the JAX `add_precomputed_penalties`, `camc2v_tpu/nn/epipolar.py:
+    77-118`): off unless `CAMC2V_EPI_PRECOMP` is set to anything but "0"; a
+    level gets them when the JAX array, b*Lq*(Lq + block_k) bf16 values,
+    stays within `max_level_bytes` (default 1.25e9). The port's array leaves
+    out the JAX array's trailing block_k register/padding columns; the cap
+    keeps the JAX formula, so the same levels get penalties. Sampling only:
+    one camera geometry serves every denoise step."""
+    if os.environ.get("CAMC2V_EPI_PRECOMP", "0") == "0":
+        return prep
+    if max_level_bytes is None:
+        max_level_bytes = int(1.25e9)
+    out = {}
+    for ds, entry in prep.items():
+        entry = dict(entry)
+        lines = entry.get("lines")
+        if lines is not None and "tile_any" in entry and "penalties" not in entry:
+            h, w = cfg.origin_h // ds, cfg.origin_w // ds
+            b, lq = lines.shape[:2]
+            if b * lq * (lq + ef.choose_block_k(h * w)) * 2 <= max_level_bytes:
+                entry["penalties"] = ef.materialize_penalties(lines, t, h, w, ds)
+        out[ds] = entry
+    return out
+
+
 class EpipolarCrossAttention(nn.Module):
     """Masked cross-attention with learned register tokens (reference
     model/modules/epipolar.py:43-102).
 
     forward(x (B, L1, C), context (B, L2, Cc), attn_mask (B, L1, L2) bool or
-    None, *, lines, geom, tile_any): with `lines` (B, L1, t, 3) and `geom`
-    (t, h, w, ds, block_k) the mask is computed in the kernel and the
-    registers ride at the end of the key axis (block_k names the tile map's
-    layout)."""
+    None, *, lines, geom, tile_any, penalties): with `lines` (B, L1, t, 3)
+    and `geom` (t, h, w, ds, block_k) the mask is computed in the kernel, or
+    read from `penalties` (pb, L1, t*h*w) when given, and the registers ride
+    at the end of the key axis (block_k names the tile map's layout)."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, out_dim: Optional[int] = None, *,
                  heads: int = 8, dim_head: int = 64, num_register_tokens: int = 0, dtype=torch.float32):
@@ -101,7 +134,7 @@ class EpipolarCrossAttention(nn.Module):
     def _registers(self, b: int, like: torch.Tensor) -> torch.Tensor:
         return self.register_tokens.expand(b, -1, -1).to(like.dtype)
 
-    def forward(self, x, context, attn_mask=None, *, lines=None, geom=None, tile_any=None):
+    def forward(self, x, context, attn_mask=None, *, lines=None, geom=None, tile_any=None, penalties=None):
         b = x.shape[0]
         split = lambda z: z.reshape(z.shape[0], z.shape[1], self.heads, self.dim_head)
         q = self.to_q(x)
@@ -115,7 +148,8 @@ class EpipolarCrossAttention(nn.Module):
             k, v = self.to_k(context), self.to_v(context)
             kw = dict(t=t, h=hh, w=ww, downsample=ds, num_registers=nreg)
             out = ef.epipolar_flash_attention(split(q).contiguous(), split(k).contiguous(), split(v).contiguous(),
-                                              lines, block_k=block_k, tile_any=tile_any, kernel=ops.route(q), **kw)
+                                              lines, block_k=block_k, tile_any=tile_any, penalties=penalties,
+                                              kernel=ops.route(q), **kw)
         else:
             if nreg > 0:
                 context = torch.cat([self._registers(b, context), context], dim=1)
@@ -162,7 +196,7 @@ class Epipolar(nn.Module):
         x = features.reshape(b, t * hw, c)
         if kernel_ok:
             out = self.epipolar_attn(x, x, lines=lines, geom=(t, hh, ww, ds, block_k),
-                                     tile_any=level.get("tile_any"))
+                                     tile_any=level.get("tile_any"), penalties=level.get("penalties"))
         else:
             out = self.epipolar_attn(x, x, ef.materialize_mask(lines, t, hh, ww, ds))
         return out.reshape(b, t, hw, -1).transpose(1, 2).reshape(b * hw, t, -1)

@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from camc2v_tpu_torch.ops.groupnorm import group_norm
+from camc2v_tpu_torch import ops
+from camc2v_tpu_torch.ops import groupnorm as gnops
+from camc2v_tpu_torch.ops import layernorm as lnops
 
 
 class Dense(nn.Module):
@@ -62,9 +64,35 @@ class Conv(nn.Module):
         return y.permute(perm_out)
 
 
+def group_norm_site(x: torch.Tensor, groups: int) -> tuple[str, int]:
+    """The JAX GroupNorm32's choice of numerics for a site on the card
+    (`camc2v_tpu/nn/layers.py:102-146`): ("temporal", 0) where K9's
+    single-pass statistics take a 5-D map (`CAMC2V_GN_TEMPORAL=1`),
+    ("big4d", s) where they take a 4-D map viewed as (N, s, H/s*W, C)
+    (`CAMC2V_GN_BIG4D=1`), else ("two_pass", 0): K1's numerics, which are
+    also the plain twin's."""
+    temporal, big4d = ops.switch_on("CAMC2V_GN_TEMPORAL"), ops.switch_on("CAMC2V_GN_BIG4D")
+    if not (temporal or big4d) or gnops.group_norm_supported(x, groups):
+        return "two_pass", 0
+    if x.dim() >= 5 and temporal and gnops.group_norm_temporal_supported(x, groups):
+        return "temporal", 0
+    if x.dim() == 4 and big4d:
+        n, h, w, c = x.shape
+        for s in range(2, h + 1):
+            if h % s == 0 and gnops.group_norm_temporal_supported(x.reshape(n, s, (h // s) * w, c), groups):
+                return "big4d", s
+    return "two_pass", 0
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm with f32 statistics and optional fused SiLU; groups become
-    gcd(C, 32) when 32 does not divide C (JAX `nn/layers.py:96-99`)."""
+    gcd(C, 32) when 32 does not divide C (JAX `nn/layers.py:96-99`).
+
+    On the card each site takes the numerics the JAX package gives it
+    (`group_norm_site`): K9 (or, inside `ops.plain_twins()`, its plain twin)
+    at the sites its switches pick, else the two-pass seam (K1 where
+    `ops.route` picks it). The CPU runs the two-pass twin whatever the
+    switches, as the JAX package does on its CPU backend."""
 
     def __init__(self, channels: int, *, num_groups: int = 32, eps: float = 1e-5):
         super().__init__()
@@ -74,11 +102,24 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, *, silu: bool = False):
-        return group_norm(x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps, silu=silu)
+        kw = dict(num_groups=self.num_groups, eps=self.eps, silu=silu)
+        if x.is_cuda:
+            site, s = group_norm_site(x, self.num_groups)
+            if site != "two_pass":
+                kernel = ops.route(x, takes=(torch.bfloat16, torch.float32))
+                xv = x if site == "temporal" else x.reshape(x.shape[0], s, -1, x.shape[-1])
+                return gnops.group_norm_fused_temporal(xv, self.weight, self.bias, kernel=kernel,
+                                                       **kw).reshape(x.shape)
+        return gnops.group_norm(x, self.weight, self.bias, **kw)
 
 
 class LayerNormF32(nn.Module):
-    """LayerNorm with f32 statistics; output cast back to the input dtype."""
+    """LayerNorm with f32 statistics; output cast back to the input dtype.
+
+    With `CAMC2V_LN_FUSED=1`, a tensor on the card at a site that
+    `layer_norm_supported` accepts takes K8 (its two-pass twin inside
+    `ops.plain_twins()`), as the JAX module does on the TPU; elsewhere the
+    library LayerNorm in f32."""
 
     def __init__(self, channels: int, *, eps: float = 1e-5):
         super().__init__()
@@ -87,6 +128,9 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
+        if x.is_cuda and ops.switch_on("CAMC2V_LN_FUSED") and lnops.layer_norm_supported(x):
+            return lnops.layer_norm_fused(x, self.weight, self.bias, eps=self.eps,
+                                          kernel=ops.route(x, takes=(torch.bfloat16, torch.float32)))
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
 

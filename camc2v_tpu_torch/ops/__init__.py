@@ -25,13 +25,23 @@ launch only with grad mode off, as inside a Function's forward and backward:
 `_build.load`, which every launch calls, raises otherwise.
 
 `LAUNCHES` counts, per kernel wrapper, the calls that launched it on the
-card (K5 and K7 each launch their dq and dk/dv kernels in one call);
-`reset_launch_counts()` zeroes it.
+card (K5 and K7 each launch their dq and dk/dv kernels in one call, K9 its
+moments and apply kernels); `reset_launch_counts()` zeroes it.
+
+The reference's opt-in routes read the JAX package's environment switches,
+all off by default, at the same decision points (`switch_on`):
+`CAMC2V_LN_FUSED` (K8, `nn/layers.py::LayerNormF32`), `CAMC2V_GN_TEMPORAL`
+and `CAMC2V_GN_BIG4D` (K9, `nn/layers.py::GroupNorm32`), `CAMC2V_EPI_PRECOMP`
+(K6p, `nn/epipolar.py::add_precomputed_penalties`) and `CAMC2V_FUSED_CFG`
+(`models/dynamicrafter.py::build_guided_fn`). Like the JAX package, which
+ignores the norm switches on its CPU backend, the norm sites follow their
+switches only for tensors on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -43,9 +53,18 @@ LAUNCHES: dict[str, int] = {
     "epipolar_flash": 0,
     "flash_bwd": 0,
     "epipolar_bwd": 0,
+    "layernorm": 0,
+    "groupnorm_temporal": 0,
+    "groupnorm_big": 0,
+    "epipolar_flash_precomp": 0,
 }
 
 _plain_depth = 0
+
+
+def switch_on(name: str) -> bool:
+    """True when the environment switch `name` is "1" (default off)."""
+    return os.environ.get(name, "0") == "1"
 
 
 def reset_launch_counts() -> None:

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash", "flash_bwd",
-           "epipolar_bwd")
+           "epipolar_bwd", "layernorm", "groupnorm_twophase", "epipolar_precomp")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

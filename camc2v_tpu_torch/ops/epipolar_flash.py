@@ -31,10 +31,22 @@ and the same subtile skips. `epipolar_flash_attention` runs `_Epipolar`:
 K6 (with the lse when a gradient is wanted) and K7, or the plain twins;
 lines and tile map get no gradient.
 
+K6p (`csrc/epipolar_precomp.cu`) replaces `_v2p_kernel`, the path of
+`epipolar_flash_attention(..., penalties=)`: K6 with the mask read from
+bf16 additive penalties (0 / -1e30) that `materialize_penalties` builds once
+per request, streamed per 64x64 tile beside the same skip map. The port's
+penalties cover the t*hw frame keys only, (pb, Lq, t*hw); the register keys
+stay always visible, as in K6, so the keys are not padded (the JAX array
+carries a trailing block_k tile of register and padding columns). Batch b
+reads penalty batch b % pb: the fused-CFG batch of 2B shares one copy. The
+penalties are an inference-path option: with a gradient wanted, the
+backward is K7's (or its twin's), on the lines' mask, as in the JAX package.
+
 The least time the function needs counts 4*D operations per query-key pair
 whose mask bit is set (`mask_pairs`; the backward 10*D); the work K6 does
 after skipping counts every pair of the subtiles the map leaves on
-(`visible_pairs`).
+(`visible_pairs`). K6p's bound adds the bytes of the penalty subtiles the
+map leaves on (`visible_penalty_bytes`).
 """
 
 from __future__ import annotations
@@ -179,20 +191,44 @@ def epipolar_attention_plain(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     (B, H, chunk, Lk): dense logits at the ds8 site would be 11 GB.
     return_lse: also the rows' logsumexp (B, H, Lq) f32, +1e30 where a row
     is fully masked (K6's training output)."""
+    gx, gy = _pixel_grid(h, w, downsample, q.device)
+    thresh = downsample * math.sqrt(2.0) / 2.0
+
+    def masked(logits, s, e):
+        mask = _chunk_mask(lines[:, s:e], gx, gy, thresh, num_registers)[:, None]
+        return torch.where(mask, logits, NEG_INF)
+
+    return _chunked_attention(q, k, v, masked, scale, return_lse)
+
+
+def epipolar_attention_precomp_plain(q, k, v, penalties, *, t: int, h: int, w: int, scale: Optional[float] = None):
+    """Plain twin of K6p: K6's twin with the frame keys' logits raised by
+    their additive penalties (pb, Lq, t*h*w), batch b reading penalty batch
+    b % pb (the JAX `_v2p_kernel` arithmetic); the register keys after the
+    frames stay visible."""
+    b, pb, thw = q.shape[0], penalties.shape[0], t * h * w
+    reps = b // pb
+
+    def penalised(logits, s, e):
+        pen = penalties[:, s:e].float().repeat(reps, 1, 1)[:, None]  # (B, 1, c, thw)
+        return torch.cat([logits[..., :thw] + pen, logits[..., thw:]], dim=-1)
+
+    return _chunked_attention(q, k, v, penalised, scale, False)
+
+
+def _chunked_attention(q, k, v, mask_logits, scale, return_lse):
+    """The twins' attention over query chunks; `mask_logits(logits, s, e)`
+    applies the mask of queries [s, e) to their (B, H, c, Lk) f32 logits."""
     b, lq, heads, d = q.shape
     if scale is None:
         scale = d ** -0.5
-    gx, gy = _pixel_grid(h, w, downsample, q.device)
-    thresh = downsample * math.sqrt(2.0) / 2.0
     qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, lq, dtype=torch.float32, device=q.device) if return_lse else None
     for s in range(0, lq, TWIN_CHUNK):
         e = min(lq, s + TWIN_CHUNK)
-        mask = _chunk_mask(lines[:, s:e], gx, gy, thresh, num_registers)[:, None]
-        logits = torch.einsum("bqhd,bkhd->bhqk", qs[:, s:e], kf)
-        logits = torch.where(mask, logits, NEG_INF)
+        logits = mask_logits(torch.einsum("bqhd,bkhd->bhqk", qs[:, s:e], kf), s, e)
         m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=M_FLOOR)
         p = torch.exp(logits - m)
         l = p.sum(dim=-1, keepdim=True)
@@ -214,9 +250,27 @@ def epipolar_bwd_plain(q, k, v, lines, out, lse, dout, *, t: int, h: int, w: int
                                lambda s, e: _chunk_mask(lines[:, s:e], gx, gy, thresh, num_registers))
 
 
+def materialize_penalties(lines: torch.Tensor, t: int, h: int, w: int, downsample: int) -> torch.Tensor:
+    """(B, Lq, t*h*w) additive penalties, 0 where the mask bit is set and
+    -1e30 where it is not: K6p's input, built once per request (the JAX
+    `materialize_penalties` without its trailing register/padding tile;
+    bf16 holds -1e30). Chunked over queries like the twin."""
+    b, lq = lines.shape[:2]
+    gx, gy = _pixel_grid(h, w, downsample, lines.device)
+    thresh = downsample * math.sqrt(2.0) / 2.0
+    out = torch.empty(b, lq, t * h * w, dtype=torch.bfloat16, device=lines.device)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=lines.device)
+    hidden = torch.full((), NEG_INF, dtype=torch.bfloat16, device=lines.device)
+    for s in range(0, lq, TWIN_CHUNK):
+        out[:, s:s + TWIN_CHUNK] = torch.where(_distance_mask(lines[:, s:s + TWIN_CHUNK].float(), gx, gy, thresh),
+                                               zero, hidden)
+    return out
+
+
 def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsample: int, num_registers: int,
                              scale: Optional[float] = None, block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
-                             tile_any: Optional[torch.Tensor] = None, kernel: bool = True):
+                             tile_any: Optional[torch.Tensor] = None, penalties: Optional[torch.Tensor] = None,
+                             kernel: bool = True):
     """Epipolar attention with the in-kernel mask (the JAX contract), through
     `_Epipolar`.
 
@@ -226,12 +280,13 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     lines: (B, Lq, t, 3) from `epipolar_lines`. tile_any: (B, Lq/block_q,
     nK*nsub) from `epipolar_tile_map` with the same block_q/block_k (its
     trailing block_k tile holds the register column), built for the kernels
-    when absent.
+    when absent. penalties: (pb, Lq, t*h*w) from `materialize_penalties`,
+    b % pb == 0, in place of the line-distance mask (K6p).
 
-    CPU tensors take the plain twins; CUDA tensors launch K6 + K7 (bf16,
-    head dim a multiple of 16 up to 128, else they raise) unless `kernel` is
-    False (the seam's plain route). A layout that block_q / block_k do not
-    tile raises on every route."""
+    CPU tensors take the plain twins; CUDA tensors launch K6 (or K6p) + K7
+    (bf16, head dim a multiple of 16 up to 128, else they raise) unless
+    `kernel` is False (the seam's plain route). A layout that block_q /
+    block_k do not tile raises on every route."""
     b, lq, heads, d = q.shape
     hw = h * w
     thw = t * hw
@@ -246,25 +301,38 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     if not (hw % block_k == 0 or (block_k % hw == 0 and thw % block_k == 0)) or lq % block_q:
         raise ValueError(f"epipolar_flash_attention: block_k {block_k} does not tile hw {hw} x t {t}, "
                          f"or Lq {lq} is not a multiple of block_q {block_q}")
+    if penalties is not None and (penalties.dim() != 3 or penalties.shape[1:] != (lq, thw)
+                                  or b % penalties.shape[0]):
+        raise ValueError(f"epipolar_flash_attention: penalties {tuple(penalties.shape)} vs (pb, {lq}, {thw}) "
+                         f"with {b} % pb == 0")
     kernel = ops.on_card(q, "epipolar_flash_attention") and kernel
     geom = dict(t=t, h=h, w=w, downsample=downsample, num_registers=num_registers, scale=scale,
                 block_q=block_q, block_k=block_k)
     if kernel and tile_any is None:
         tile_any = epipolar_tile_map(lines, t, h, w, downsample, block_q, block_k)
-    return _Epipolar.apply(q, k, v, lines, tile_any, geom, kernel)
+    return _Epipolar.apply(q, k, v, lines, tile_any, penalties, geom, kernel)
 
 
 class _Epipolar(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, lines, tile_any, geom, kernel):
-        want_lse = any(ctx.needs_input_grad[:3])
+    def forward(ctx, q, k, v, lines, tile_any, penalties, geom, kernel):
+        want_grad = any(ctx.needs_input_grad[:3])
         twin_geom = {n: geom[n] for n in ("t", "h", "w", "downsample", "num_registers", "scale")}
+        ctx.kernel, ctx.geom, ctx.twin_geom = kernel, geom, twin_geom
+        if penalties is not None:
+            if kernel:
+                out = _launch_precomp(q, k, v, lines, penalties, tile_any, geom)
+            else:
+                out = epipolar_attention_precomp_plain(q, k, v, penalties, t=geom["t"], h=geom["h"], w=geom["w"],
+                                                       scale=geom["scale"])
+            if want_grad:  # the backward re-derives the lse from the lines
+                ctx.save_for_backward(q, k, v, lines, tile_any, None, None)
+            return out
         if kernel:
-            out, lse = _launch_fwd(q, k, v, lines, tile_any, geom, want_lse=want_lse)
+            out, lse = _launch_fwd(q, k, v, lines, tile_any, geom, want_lse=want_grad)
         else:
             out, lse = epipolar_attention_plain(q, k, v, lines, return_lse=True, **twin_geom)
-        ctx.kernel, ctx.geom, ctx.twin_geom = kernel, geom, twin_geom
-        if want_lse:
+        if want_grad:
             ctx.save_for_backward(q, k, v, lines, tile_any, out, lse)
         return out
 
@@ -272,11 +340,16 @@ class _Epipolar(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, lines, tile_any, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
+        if lse is None:  # the penalties' forward: recompute on the lines' mask
+            if ctx.kernel:
+                out, lse = _launch_fwd(q, k, v, lines, tile_any, ctx.geom, want_lse=True)
+            else:
+                out, lse = epipolar_attention_plain(q, k, v, lines, return_lse=True, **ctx.twin_geom)
         if ctx.kernel:
             dq, dk, dv = epipolar_flash_bwd(q, k, v, lines, tile_any, out, lse, dout, ctx.geom)
         else:
             dq, dk, dv = epipolar_bwd_plain(q, k, v, lines, out, lse, dout, **ctx.twin_geom)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _kernel_args(q, k, v, lines, tile_any, geom, what):
@@ -330,6 +403,27 @@ def _launch_fwd(q, k, v, lines, tile_any, geom, *, want_lse: bool):
     return out, lse
 
 
+def _launch_precomp(q, k, v, lines, penalties, tile_any, geom):
+    """K6p: out, the mask read from the (pb, Lq, t*hw) bf16 penalties."""
+    b, lq, heads, d = q.shape
+    _, tile_any, sub, cols, scale_bf16, _ = _kernel_args(q, k, v, lines, tile_any, geom,
+                                                          "epipolar_flash_attention(penalties)")
+    if penalties.dtype != torch.bfloat16 or penalties.device != q.device:
+        raise ValueError(f"epipolar_flash_attention: penalties must be bf16 on {q.device} (got {penalties.dtype})")
+    penalties = penalties.contiguous()
+    out = torch.empty_like(q)
+    fn = _build.load("epipolar_precomp").epipolar_precomp_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), penalties.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
+             b, lq, k.shape[1], heads, d, geom["t"] * geom["h"] * geom["w"], geom["num_registers"],
+             penalties.shape[0], geom["block_q"], sub, cols, scale_bf16,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "epipolar_flash_attention(penalties)")
+    ops.LAUNCHES["epipolar_flash_precomp"] += 1
+    return out
+
+
 def epipolar_flash_bwd(q, k, v, lines, tile_any, out, lse, dout, geom):
     """K7: (dq, dk, dv) bf16 from K6's out and lse (B, H, Lq) and dout; geom
     as `epipolar_flash_attention` takes it (t, h, w, downsample,
@@ -371,6 +465,16 @@ def mask_pairs(lines: torch.Tensor, *, heads: int, t: int, h: int, w: int, downs
     frame = sum(int(_distance_mask(lines[:, s:s + TWIN_CHUNK].float(), gx, gy, thresh).sum())
                 for s in range(0, lq, TWIN_CHUNK))
     return (frame + b * lq * num_registers) * heads
+
+
+def visible_penalty_bytes(tile_any: torch.Tensor, *, t: int, hw: int, pb: int, block_q: int = BLOCK_Q,
+                          block_k: int = BLOCK_K) -> int:
+    """Bytes of the bf16 penalty subtiles the map leaves on, each read once
+    (a map's rows past the penalties' batch pb read the same penalties):
+    what K6p must read of the penalties for these inputs."""
+    sub = min(SUBTILE, block_k, hw)
+    frame_cols = t * hw // sub
+    return int(tile_any[:pb, :, :frame_cols].sum()) * block_q * sub * 2
 
 
 def visible_pairs(tile_any: torch.Tensor, *, heads: int, t: int, hw: int, num_registers: int,

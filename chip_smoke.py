@@ -65,12 +65,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               `make_train_step` split by CUDA events (conditioning and its
               parts, forward + loss, backward, optimizer) and one more
               micro-step profiled by kernel.
+  8. routes   CamContextI2V-256 generation with the reference's opt-in
+              routes, all five switches on (CAMC2V_EPI_PRECOMP,
+              CAMC2V_LN_FUSED, CAMC2V_GN_TEMPORAL, CAMC2V_GN_BIG4D,
+              CAMC2V_FUSED_CFG; phases 1-7 run with them off): one fused-CFG
+              batch-2B UNet call (the uncond padded to the context's length,
+              the penalties shared, not stacked) with the kernels against the
+              same call inside `ops.plain_twins()`, relative L2 <= 5e-2; then
+              two batch-1 DDIM requests, one at batch 2 and one batch-1
+              13-step DPM++(2M) request (the bench recipe otherwise), each
+              finite (B, 16, 256, 256, 3) with the split, peak memory and the
+              penalties' bytes; counts zeroed just before the requests and
+              read after: K6p (`epipolar_flash_precomp`), K8 (`layernorm`)
+              and K9 (`groupnorm_temporal`) must launch, and K6 only in the
+              adaptor (every UNet epipolar level is under the penalties' cap
+              at batch 1 and 2). Phase 3 holds K6p (ds8 and ds16, penalties
+              shared by a batch of 2), K8, K9 (a 5-D UNet site and the VAE's
+              256x256 4-D view) and K10 (which has no model caller) against
+              their twins.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -84,6 +103,35 @@ TOL_ULPS = 4  # kernel vs twin: 4 bf16 ulps (2^-6) of the reference's max |value
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 OUT_DIR = "smoke_out"  # per-site K6 times, the step profile and a JSON summary
+# the bench.py request recipe (25-step DDIM, CFG 7.5, rescale 0.7, eta 1,
+# uniform_trailing; the package's `sample` defaults are the JAX package's)
+BENCH_RECIPE = dict(ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5, guidance_rescale=0.7,
+                    timestep_spacing="uniform_trailing")
+DPMPP_RECIPE = dict(BENCH_RECIPE, ddim_steps=13, sampler="dpmpp_2m")  # bench.py's throughput extra
+ROUTE_SWITCHES = ("CAMC2V_EPI_PRECOMP", "CAMC2V_LN_FUSED", "CAMC2V_GN_TEMPORAL", "CAMC2V_GN_BIG4D",
+                  "CAMC2V_FUSED_CFG")
+
+
+@contextlib.contextmanager
+def _switch(names, value: str):
+    """The environment switches `names` (one name or several) set to `value`
+    ("1" on, "0" off) for the block, the environment restored after."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: value for k in names})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _switches(value: str):
+    """Every opt-in route switch set to `value` for the block."""
+    return _switch(ROUTE_SWITCHES, value)
 
 
 def _fail(msg: str) -> None:
@@ -543,6 +591,123 @@ def backward_checks(dev) -> dict:
     return res
 
 
+@torch.no_grad()
+def route_kernel_checks(dev) -> dict:
+    """K8, K9, K10 and K6p, the opt-in routes' kernels, against their plain
+    twins at the routes path's shapes, timed beside the twin (which is also
+    the seam's plain route), the library call and the bound."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.ops import epipolar_flash as ef
+    from camc2v_tpu_torch.ops import groupnorm as gn
+    from camc2v_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+    randn = lambda *s, scale=1.0, mean=0.0: (torch.randn(*s, generator=g, device=dev) * scale + mean)  # noqa: E731
+    res = {}
+
+    # K8: a UNet transformer norm at ds1 and the CLIP towers' widths
+    errs = []
+    for label, shape in [("UNet ds1 (32768, 320)", (32768, 320)), ("CLIP vision (1028, 1280)", (1028, 1280)),
+                         ("CLIP text (154, 1024)", (154, 1024))]:
+        x = randn(*shape, scale=1.5, mean=0.3).to(bf)
+        s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
+        errs.append(_compare(f"layernorm {label}", ln.layer_norm_fused(x, s_, b_), ln.layer_norm_plain(x, s_, b_)))
+    x = randn(32768, 320, scale=1.5, mean=0.3).to(bf)
+    s_, b_ = randn(320, scale=0.2, mean=1.0), randn(320, scale=0.2)
+    plain = _time_ms(lambda: ln.layer_norm_plain(x, s_, b_))
+    default = _time_ms(lambda: torch.nn.functional.layer_norm(x.float(), (320,), s_, b_, 1e-5).to(bf))
+    library = _time_ms(lambda: torch.nn.functional.layer_norm(x, (320,), s_.to(bf), b_.to(bf), 1e-5))
+    res["layernorm"] = dict(max_abs_err=max(errs), ms=_time_ms(lambda: ln.layer_norm_fused(x, s_, b_)),
+                            plain_ms=plain, twin_ms=plain, library_ms=library, default_route_ms=default,
+                            **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
+
+    # K9 at a 5-D UNet site and the VAE's 256x256 map viewed as (16, 16, 4096, 128); K10 at the 5-D site
+    errs, errs10 = [], []
+    for label, shape, silu in [("5-D ds1 (2,16,32,32,320) silu", (2, 16, 32, 32, 320), True),
+                               ("5-D ds1 (2,16,32,32,320)", (2, 16, 32, 32, 320), False),
+                               ("VAE 256^2 view (16,16,4096,128) silu", (16, 16, 4096, 128), True)]:
+        x = randn(*shape, scale=2.0, mean=0.5).to(bf)
+        s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
+        twin = gn.group_norm_temporal_plain(x, s_, b_, silu=silu)
+        errs.append(_compare(f"groupnorm_temporal {label}", gn.group_norm_fused_temporal(x, s_, b_, silu=silu), twin))
+        errs10.append(_compare(f"groupnorm_big {label}", gn.group_norm_fused_big(x, s_, b_, silu=silu), twin))
+    sites = {}
+    for label, shape in [("5-D ds1 (2,16,32,32,320)", (2, 16, 32, 32, 320)),
+                         ("VAE 256^2 view (16,16,4096,128)", (16, 16, 4096, 128))]:
+        x = randn(*shape, scale=2.0, mean=0.5).to(bf)
+        s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
+        xn = x.reshape(shape[0], -1, shape[-1]).transpose(1, 2)  # (N, C, positions), the library's layout
+        sites[label] = dict(
+            k9_ms=_time_ms(lambda: gn.group_norm_fused_temporal(x, s_, b_, silu=True)),
+            k10_ms=_time_ms(lambda: gn.group_norm_fused_big(x, s_, b_, silu=True)),
+            twin_ms=_time_ms(lambda: gn.group_norm_temporal_plain(x, s_, b_, silu=True), reps=3),
+            library_ms=_time_ms(lambda: torch.nn.functional.group_norm(xn, 32, s_.to(bf), b_.to(bf), 1e-5)),
+            **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
+        print(f"  time groupnorm {label} + SiLU: K9 {sites[label]['k9_ms']:.4f} ms, K10 {sites[label]['k10_ms']:.4f} "
+              f"ms, twin {sites[label]['twin_ms']:.4f} ms, library (F.group_norm, no SiLU) "
+              f"{sites[label]['library_ms']:.4f} ms, bound {sites[label]['bound_ms']:.4f} ms", flush=True)
+    main = sites["5-D ds1 (2,16,32,32,320)"]
+    common = dict(plain_ms=main["twin_ms"], twin_ms=main["twin_ms"], library_ms=main["library_ms"],
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"], sites=sites)
+    res["groupnorm_temporal"] = dict(max_abs_err=max(errs), ms=main["k9_ms"], **common)
+    res["groupnorm_big"] = dict(max_abs_err=max(errs10), ms=main["k10_ms"], **common)
+
+    # K6p: the UNet's ds8 and ds16 levels at batch 2 reading one batch of
+    # penalties (the fused-CFG stack of one request), the bench geometry
+    F1 = bench_F(dev, b=1)
+    errs, sites = [], {}
+    for label, (t, h, w, ds, heads) in [("ds8 B=2 pb=1 (2,16384,5,64)", (16, 32, 32, 8, 5)),
+                                        ("ds16 B=2 pb=1 (2,4096,10,64)", (16, 16, 16, 16, 10))]:
+        hw, nreg = h * w, 4
+        lines1 = ef.epipolar_lines(F1, h, w, ds)
+        lines = lines1.expand(2, *lines1.shape[1:]).contiguous()
+        bk = ef.choose_block_k(hw)
+        tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
+        pen = ef.materialize_penalties(lines1, t, h, w, ds)
+        lq = lines.shape[1]
+        q = randn(2, lq, heads, 64).to(bf)
+        k, v = randn(2, t * hw + nreg, heads, 64).to(bf), randn(2, t * hw + nreg, heads, 64).to(bf)
+        kw = dict(t=t, h=h, w=w, downsample=ds, num_registers=nreg)
+        run = lambda: ef.epipolar_flash_attention(q, k, v, lines, block_k=bk, tile_any=tiles,  # noqa: E731
+                                                  penalties=pen, **kw)
+        twin = lambda: ef.epipolar_attention_precomp_plain(q, k, v, pen, t=t, h=h, w=w)  # noqa: E731
+        errs.append(_compare(f"epipolar_precomp {label}", run(), twin()))
+        pairs = ef.mask_pairs(lines, heads=heads, **kw)
+        pen_bytes = ef.visible_penalty_bytes(tiles, t=t, hw=hw, pb=1, block_k=bk)
+        site = dict(ms=_time_ms(run), in_kernel_k6_ms=_time_ms(lambda: ef.epipolar_flash_attention(
+            q, k, v, lines, block_k=bk, tile_any=tiles, **kw)), penalty_bytes_read=pen_bytes,
+            penalty_bytes=_nbytes(pen), **_bound(_nbytes(q, k, v, q, tiles) + pen_bytes, 4 * 64 * pairs))
+        if label.startswith("ds8"):
+            site["twin_ms"] = _time_ms(twin, reps=2)
+            mask = torch.cat([pen, torch.zeros(1, lq, nreg, dtype=bf, device=dev)], dim=-1)[:, None]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            site["library_ms"] = _time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3)
+            del mask
+        sites[label] = site
+        print(f"  time epipolar_precomp {label}: kernel {site['ms']:.4f} ms (in-kernel mask K6 on the same inputs "
+              f"{site['in_kernel_k6_ms']:.4f} ms), bound {site['bound_ms']:.4f} ms ({site['bound_by']}; penalty "
+              f"subtiles left on {pen_bytes / 2 ** 20:.1f} of {_nbytes(pen) / 2 ** 20:.1f} MiB)", flush=True)
+        del pen
+        torch.cuda.empty_cache()
+    s8 = sites["ds8 B=2 pb=1 (2,16384,5,64)"]
+    print(f"  time epipolar_precomp ds8: chunked twin {s8['twin_ms']:.4f} ms, library (SDPA, penalties as a bf16 "
+          f"additive mask) {s8['library_ms']:.4f} ms", flush=True)
+    res["epipolar_flash_precomp"] = dict(max_abs_err=max(errs), ms=s8["ms"], plain_ms=s8["twin_ms"],
+                                         twin_ms=s8["twin_ms"], library_ms=s8["library_ms"],
+                                         bound_ms=s8["bound_ms"], bound_by=s8["bound_by"], sites=sites)
+    res["phase3_launches"] = {n: ops.LAUNCHES[n] for n in ("layernorm", "groupnorm_temporal", "groupnorm_big",
+                                                           "epipolar_flash_precomp")}
+    if not all(res["phase3_launches"].values()):
+        _fail(f"phase 3: a routes kernel never launched: {res['phase3_launches']}")
+    for name in ("layernorm", "groupnorm_temporal", "groupnorm_big", "epipolar_flash_precomp"):
+        r = res[name]
+        print(f"  time {name}: kernel {r['ms']:.4f} ms, plain route = f32 twin {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return res
+
+
 def _rel_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
     torch.cuda.synchronize()
     rel = ((got - ref).norm() / ref.norm()).item()
@@ -649,8 +814,10 @@ def _profile_by_kernel(fn, out_name: str, title: str, top_n: int = 12):
     return by_kernel, total
 
 
-def generate(model, make_batch, label: str, device_line: str) -> list:
-    """Three requests (batch 1, batch 1 again, batch 2) through `model.sample`;
+def generate(model, make_batch, label: str, device_line: str,
+             plan=((1, 11, BENCH_RECIPE), (1, 12, BENCH_RECIPE), (2, 22, BENCH_RECIPE))) -> list:
+    """The requests of `plan`, (batch, seed, recipe) each (by default batch
+    1, batch 1 again, batch 2 with the bench recipe), through `model.sample`;
     CUDA events inside each time the conditioning (`prepare_batch`), every
     UNet call (`apply_model`) and the decode (`decode_first_stage`), so the
     rest of the request (sampler update math, host gaps) is what is left.
@@ -679,7 +846,7 @@ def generate(model, make_batch, label: str, device_line: str) -> list:
     for name in real:
         setattr(model, name, timed(name))
     try:
-        for b, seed in [(1, 11), (1, 12), (2, 22)]:
+        for b, seed, recipe in plan:
             batch = make_batch(b, seed)
             g = torch.Generator(device=batch["video"].device).manual_seed(seed + 1)
             torch.cuda.reset_peak_memory_stats()
@@ -689,8 +856,7 @@ def generate(model, make_batch, label: str, device_line: str) -> list:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             with _ClockSampler() as clocks:
                 start.record()
-                video = model.sample(batch, generator=g, ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5,
-                                     guidance_rescale=0.7, timestep_spacing="uniform_trailing")
+                video = model.sample(batch, generator=g, **recipe)
                 end.record()
                 torch.cuda.synchronize()
             sec = start.elapsed_time(end) / 1000.0
@@ -705,7 +871,8 @@ def generate(model, make_batch, label: str, device_line: str) -> list:
             peak = max(peaks.values())
             srt = sorted(unet)
             slow = sorted(range(len(unet)), key=lambda i: -unet[i])[:3]
-            print(f"  {label} request batch={b} seed={seed}: out {tuple(video.shape)} finite, "
+            sampler = f"{recipe.get('sampler', 'ddim')} {recipe['ddim_steps']} steps"
+            print(f"  {label} request batch={b} seed={seed} {sampler}: out {tuple(video.shape)} finite, "
                   f"std={video.std().item():.4f}, {sec:.3f} s total, {sec / b:.3f} s/video, peak {peak:.2f} GiB, "
                   f"conditioning {cond_s:.3f} s ({cond_s / sec:.3f} of the request) [{device_line}]", flush=True)
             print(f"    split: conditioning {cond_s:.3f} s, {len(unet)} UNet calls {unet_s:.3f} s (min "
@@ -713,7 +880,8 @@ def generate(model, make_batch, label: str, device_line: str) -> list:
                   f"{[(i, round(unet[i], 1)) for i in slow]}), decode {dec_s:.3f} s, rest "
                   f"{sec - cond_s - unet_s - dec_s:.3f} s; peak GiB by phase "
                   f"{ {name: round(gib, 2) for name, gib in peaks.items()} }; {clocks.summary}", flush=True)
-            out_lines.append(dict(model=label, batch=b, seed=seed, seconds=sec, s_per_video=sec / b, peak_gib=peak,
+            out_lines.append(dict(model=label, batch=b, seed=seed, sampler=sampler, seconds=sec, s_per_video=sec / b,
+                                  peak_gib=peak,
                                   peak_gib_by_phase=dict(peaks), conditioning_s=cond_s, unet_calls_ms=unet,
                                   decode_s=dec_s, rest_s=sec - cond_s - unet_s - dec_s, clocks=clocks.summary))
     finally:
@@ -959,6 +1127,120 @@ def _train_split(model, state, cfg, dev) -> dict:
     return out
 
 
+def _routes_unet_check(model, dev) -> dict:
+    """One fused-CFG guided step of a batch-1 CamContextI2V request with the
+    routes on: the uncond padded to the context's length (a per-frame
+    (B, T, L) key mask), the penalties shared by the stacked batch; the one
+    batch-2 UNet call it makes, kernels against `ops.plain_twins()`."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.nn.epipolar import add_precomputed_penalties
+
+    batch = camcontext_batch(model, 1, 51, dev)
+    calls = []
+    real = model.apply_model
+
+    def record(x, t, cond, fs=None, **kw):
+        calls.append((x, t, cond, fs))
+        return real(x, t, cond, fs, **kw)
+
+    with torch.no_grad():
+        z, cond = model.prepare_batch(batch, prefetch_uncond=True)
+        cond["camera"]["epi_prep"] = add_precomputed_penalties(cond["camera"]["epi_prep"], model.config.epipolar,
+                                                               model.config.video_length)
+        uc = model.build_uncond(cond, 1, (256, 256))
+        cond.pop("_uncond", None)
+        fn = model.build_guided_fn(cond, uc, model.get_fs(batch), guidance_scale=7.5, guidance_rescale=0.7)
+        x = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(52), device=dev)
+        model.apply_model = record
+        try:
+            fn(x, torch.full((1,), 999, device=dev))
+        finally:
+            del model.apply_model
+        if len(calls) != 1 or calls[0][0].shape[0] != 2:
+            _fail(f"routes: the guided step made {len(calls)} UNet calls, not one fused batch-2 call")
+        x2, t2, c2, fs2 = calls[0]
+        prep = c2["camera"]["epi_prep"]
+        pen = {ds: e["penalties"] for ds, e in prep.items() if "penalties" in e}
+        if not pen or any(p.shape[0] != 1 or prep[ds]["lines"].shape[0] != 2 for ds, p in pen.items()) or \
+                tuple(c2["c_crossattn_mask"].shape) != (2, 16, c2["c_crossattn"].shape[1]):
+            _fail("routes: the fused batch must share (B, ...) penalties and carry the (2B, T, L) key mask")
+        ops.reset_launch_counts()
+        got = model.apply_model(x2, t2, c2, fs2)
+        launches = dict(ops.LAUNCHES)
+        with ops.plain_twins():
+            ref = model.apply_model(x2, t2, c2, fs2)
+        _rel_check("routes fused-CFG unet call (2,16,32,32,8), penalties shared", got, ref)
+        step_ms = _time_ms(lambda: model.apply_model(x2, t2, c2, fs2), reps=3)
+        print(f"  routes fused-CFG UNet call: {step_ms:.3f} ms; launches {launches}; penalties "
+              f"{ {ds: tuple(p.shape) for ds, p in pen.items()} }", flush=True)
+        # each route left out in turn, the others on: what each one moves
+        fs = model.get_fs(batch)
+        no_pen = dict(c2, camera=dict(c2["camera"], epi_prep={
+            ds: {k: v for k, v in e.items() if k != "penalties"} for ds, e in prep.items()}))
+        leave_out = {"all on": step_ms}
+        for name in ("CAMC2V_LN_FUSED", "CAMC2V_GN_TEMPORAL"):
+            with _switch(name, "0"):
+                leave_out[f"{name} off"] = _time_ms(lambda: model.apply_model(x2, t2, c2, fs2), reps=3)
+        leave_out["no penalties (K6 in the UNet)"] = _time_ms(lambda: model.apply_model(x2, t2, no_pen, fs2), reps=3)
+        leave_out["CAMC2V_FUSED_CFG off (two batch-1 calls)"] = _time_ms(
+            lambda: (model.apply_model(x, t2[:1], cond, fs), model.apply_model(x, t2[:1], uc, fs)), reps=3)
+        print(f"  routes UNet step, each route left out (ms): { {k: round(v, 3) for k, v in leave_out.items()} }",
+              flush=True)
+        by_kernel, total = _profile_by_kernel(lambda: model.apply_model(x2, t2, c2, fs2), "routes_step_profile.txt",
+                                              f"routes fused-CFG UNet call, batch 2 (event-timed {step_ms:.3f} ms)")
+    for name in ("layernorm", "groupnorm_temporal", "epipolar_flash_precomp", "flash_attention"):
+        if launches[name] == 0:
+            _fail(f"routes: {name} never launched in the fused UNet call: {launches}")
+    return dict(step_ms=step_ms, leave_one_out_ms=leave_out, launches=launches,
+                rel_l2=((got - ref).norm() / ref.norm()).item(),
+                profiled_ms=total, profile_top=sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()),
+                                                      key=lambda e: -e[1])[:25])
+
+
+def routes_phase(dev, device_line: str) -> dict:
+    """Phase 8: CamContextI2V-256 generation with every opt-in route on (see
+    the module docstring)."""
+    from camc2v_tpu_torch import ops, presets
+    from camc2v_tpu_torch.models import dynamicrafter as dm
+
+    penalty_bytes = []
+    real_add = dm.add_precomputed_penalties
+
+    def counted(prep, *a, **k):
+        out = real_add(prep, *a, **k)
+        penalty_bytes.append({ds: _nbytes(e["penalties"]) for ds, e in out.items() if "penalties" in e})
+        return out
+
+    with _switches("1"):
+        model = presets.build("camcontexti2v_256", seed=4321)
+        step = _routes_unet_check(model, dev)
+        torch.cuda.empty_cache()
+        plan = ((1, 61, BENCH_RECIPE), (1, 62, BENCH_RECIPE), (2, 72, BENCH_RECIPE), (1, 63, DPMPP_RECIPE))
+        dm.add_precomputed_penalties = counted
+        try:
+            ops.reset_launch_counts()
+            requests = generate(model, lambda b, seed: camcontext_batch(model, b, seed, dev), "camcontexti2v routes",
+                                device_line, plan=plan)
+            launches = dict(ops.LAUNCHES)
+        finally:
+            dm.add_precomputed_penalties = real_add
+        adaptor_layers = model.config.adaptor.depth
+    for req, pb in zip(requests, penalty_bytes):
+        req["penalty_bytes"] = pb
+    print(f"[8 launches] camcontexti2v routes {launches}; penalties per request (bytes by level) {penalty_bytes}",
+          flush=True)
+    need = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "layernorm", "groupnorm_temporal",
+            "epipolar_flash_precomp")
+    if not all(launches[n] > 0 for n in need):
+        _fail(f"routes: a kernel of the routes path never launched: {launches}")
+    if launches["epipolar_flash"] != adaptor_layers * len(plan):
+        _fail(f"routes: in-kernel K6 launched {launches['epipolar_flash']} times, not only in the adaptor "
+              f"({adaptor_layers} layers x {len(plan)} requests)")
+    del model
+    torch.cuda.empty_cache()
+    return dict(unet_step=step, requests=requests, launches=launches)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("CUDA is not available (this smoke run needs the GPU; there is no CPU fallback)")
@@ -967,17 +1249,20 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     device_line = _device_line()
+    stack = contextlib.ExitStack()
+    stack.enter_context(_switches("0"))  # phases 1-7: the default path
     os.makedirs(OUT_DIR, exist_ok=True)
     print(f"[1 device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}", flush=True)
 
     secs = _build.build_all()
-    print(f"[2 build] {len(_build.KERNELS)} kernels built in {secs:.1f} s", flush=True)
+    print(f"[2 build] {len(_build.KERNELS)} kernel libraries built in {secs:.1f} s", flush=True)
 
     print("[3 kernels] kernel vs plain twin, bf16", flush=True)
     dc = presets.build("dynamicrafter_256", seed=1234)  # pins the card's numerics before the checks
     checks = kernel_checks(dev)
     checks.update(backward_checks(dev))
+    checks.update(route_kernel_checks(dev))
     torch.cuda.empty_cache()
 
     print("[4 unet] full-width denoise steps", flush=True)
@@ -1018,10 +1303,14 @@ def main() -> None:
     print("[7 train] CamContextI2V-256 training, full width", flush=True)
     train = train_phase(dev, device_line)
     launches = train["launches"]
+    stack.close()
+
+    print("[8 routes] CamContextI2V-256 with the opt-in routes on (K6p, K8, K9, fused CFG, DPM++(2M))", flush=True)
+    routes = routes_phase(dev, device_line)
 
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
-                       launches_camcontexti2v=cc_launches, train=train, kernels=checks), f, indent=1)
+                       launches_camcontexti2v=cc_launches, train=train, routes=routes, kernels=checks), f, indent=1)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -1031,15 +1320,26 @@ def main() -> None:
         "epipolar_flash": ("camc2v_tpu_torch/csrc/epipolar_flash.cu", "camc2v_tpu/ops/epipolar_flash.py:226"),
         "flash_bwd": ("camc2v_tpu_torch/csrc/flash_bwd.cu", "camc2v_tpu/ops/flash_attention.py:329"),
         "epipolar_bwd": ("camc2v_tpu_torch/csrc/epipolar_bwd.cu", "camc2v_tpu/ops/epipolar_flash.py:666"),
+        "epipolar_flash_precomp": ("camc2v_tpu_torch/csrc/epipolar_precomp.cu",
+                                   "camc2v_tpu/ops/epipolar_flash.py:370"),
+        "layernorm": ("camc2v_tpu_torch/csrc/layernorm.cu", "camc2v_tpu/ops/layernorm.py:29"),
+        "groupnorm_temporal": ("camc2v_tpu_torch/csrc/groupnorm_twophase.cu", "camc2v_tpu/ops/groupnorm.py:265"),
+        "groupnorm_big": ("camc2v_tpu_torch/csrc/groupnorm_twophase.cu", "camc2v_tpu/ops/groupnorm.py:160"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "twin_ms", "bound_ms", "bound_by", "library_ms")
-    # launches: the training run (this slice's path, every kernel); the
-    # CamContextI2V generation run's counts beside them
+    # launches: the routes run (this slice's path) for its kernels, the
+    # training run (the earlier slice's path, every K1-K7) for the others;
+    # the default CamContextI2V generation run's and the routes run's counts
+    # beside them (K10 has no model caller: its launches are phase 3's)
+    new = ("epipolar_flash_precomp", "layernorm", "groupnorm_temporal", "groupnorm_big")
     kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             launches_generation=cc_launches[name], **{k: checks[name][k] for k in keys})
+        dict(name=name, route="cuda", source=src, replaces=rep,
+             launches=routes["launches"][name] if name in new else launches[name],
+             launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
+             **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
+    kernels[-1]["launches_phase3"] = checks["phase3_launches"]["groupnorm_big"]
     print(device_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,10 @@ in the order parent, change, change, parent:
     python3 tools/torch_ab.py <parent root> <change root>
 
 Each process builds its tree's kernels, answers three CamContextI2V-256
-requests at batch 1 (`sample`, the 25-step recipe) and takes nine batch-2
-training micro-steps of `make_train_step` (the flagship recipe), and prints
-one line `AB {json}` with the wall and host CPU seconds of each request and
-micro-step. Seeded random weights, as in chip_smoke.py.
+requests at batch 1 (`sample` with the bench.py recipe, 25-step DDIM) and
+takes nine batch-2 training micro-steps of `make_train_step` (the flagship
+recipe), and prints one line `AB {json}` with the wall and host CPU seconds
+of each request and micro-step. Seeded random weights, as in chip_smoke.py.
 """
 
 import json
@@ -16,6 +16,10 @@ import statistics
 import subprocess
 import sys
 import time
+
+# the bench.py request recipe, passed explicitly (trees differ in `sample`'s defaults)
+RECIPE = dict(ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5, guidance_rescale=0.7,
+              timestep_spacing="uniform_trailing")
 
 
 def one(root: str, label: str) -> dict:
@@ -44,7 +48,7 @@ def one(root: str, label: str) -> dict:
     for seed in (11, 12, 13):
         batch = cs.camcontext_batch(model, 1, seed, dev)
         with torch.no_grad():
-            _, wall, cpu = timed(lambda: model.sample(batch))
+            _, wall, cpu = timed(lambda: model.sample(batch, **RECIPE))
         gen.append((wall, cpu))
     res["request_b1_wall_s"], res["request_b1_cpu_s"] = [w for w, _ in gen], [c for _, c in gen]
     del model
