@@ -1,6 +1,9 @@
-// Attention cores shared by K2/K5 (flash attention, bool mask) and K6/K7
-// (epipolar flash attention, mask recomputed from epipolar lines): the
-// online-softmax forward and the two backward sweeps (dq; dk and dv).
+// The attention core of K6, K6p and K7 (epipolar flash attention, the mask
+// recomputed from epipolar lines or read as penalties): the online-softmax
+// forward and the two backward sweeps (dq; dk and dv). K2 and K5 (flash
+// attention with a bool mask, its policy `BoolMask`) moved to the Hopper
+// core, flash_hopper.cuh, which keeps these four policy members and calls
+// them on wgmma fragment coordinates.
 //
 // Blocks of 4 warps; Q/K/V/dO tiles of 64 rows staged in shared memory with
 // 16-byte loads; WMMA 16x16x16 bf16 MMAs with f32 accumulators; each warp's
@@ -46,24 +49,6 @@ constexpr int LDP = BK + 8;  // bf16 probability tile
 constexpr float NEG_INF = -1e30f;
 constexpr float M_FLOOR = -1e20f;
 constexpr float LSE_MASKED = 1e30f;  // lse of a fully masked row: exp(s - lse) == 0
-
-// K2/K5's mask: an optional (B|1, Lq, Lk) bool mask plus its non-empty-tile
-// map (B, nq, nk) over 64x64 tiles
-struct BoolMask {
-  const uint8_t* mask;
-  const uint8_t* tile_any;
-  long long bstride;
-  int Lq, Lk, nq, nk;
-
-  __device__ bool skip(int b, int qt, int kt) const {
-    return tile_any != nullptr && !tile_any[((long long)b * nq + qt) * nk + kt];
-  }
-  __device__ void stage(int, int, int) const {}
-  __device__ bool visible(int b, int, int qrow, int kj) const {
-    return mask == nullptr || mask[b * bstride + (long long)qrow * Lk + kj];
-  }
-  __device__ float score(int, int, float s) const { return s; }
-};
 
 // shared memory of the forward core; a mask policy's own staging area follows it
 __host__ __device__ inline size_t core_smem_bytes(int d) {

@@ -9,13 +9,14 @@ into `_build/lib<name>-<hash>.so` inside this package (listed in
 
 The hash covers the source files, so an edited kernel rebuilds. `build_all()`
 compiles every kernel in parallel and returns the wall time; `load(name)`
-builds one kernel if needed and returns its `ctypes.CDLL` for a launch,
-and raises in grad mode: a ctypes launch writes a fresh tensor that autograd
-does not see, so kernels launch only inside their `torch.autograd.Function`
-(whose forward and backward run with grad mode off) or under
-`torch.no_grad()`. Nothing here runs
-at import: the CPU tests import every module, and a machine without the CUDA
-toolkit has no nvcc.
+builds one kernel if needed and returns its `ctypes.CDLL` for a launch
+(`function(name, symbol, argtypes)` returns an entry point with its types
+set once), and raises in grad mode: a ctypes launch writes a fresh tensor
+that autograd does not see, so kernels launch only inside their
+`torch.autograd.Function` (whose forward and backward run with grad mode
+off) or under `torch.no_grad()`. Nothing here runs at import: the CPU
+tests import every module, and a machine without the CUDA toolkit has no
+nvcc.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "ep
            "epipolar_bwd", "layernorm", "groupnorm_twophase", "epipolar_precomp")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], object] = {}
 
 
 def _nvcc() -> str:
@@ -103,6 +105,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry point `symbol` of kernel `name` (through `load`, so with
+    its grad-mode check), its `restype` (int) and `argtypes` set once, when
+    the library is first loaded."""
+    lib = load(name)
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

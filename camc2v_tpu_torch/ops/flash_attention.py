@@ -13,7 +13,14 @@ K5 (`csrc/flash_bwd.cu`) replaces `_bwd_dq_kernel` / `_bwd_dkv_kernel`
 (`_flash_bwd_impl`, the custom VJP of `flash_attention`): from q, k, v, the
 mask, out, lse and dout it computes dq, dk, dv with delta = rowsum(dout·out)
 in f32, p = exp(s - lse), ds = p·(dp - delta), empty tiles skipped and zero
-gradient for a fully masked row.
+gradient for a fully masked row. Its pre-pass kernel forms qs = bf16(q·scale)
+and delta on the card; `bwd_prepass_plain` is its plain version.
+
+Both kernels are built for Hopper on one core, `csrc/flash_hopper.cuh`
+(TMA copies into an mbarrier ring, wgmma products with register
+accumulators): it tiles queries by 128 and keys by 64, and the wrapper gives
+it the mask zero-padded to whole tiles with the map of its non-empty tiles
+on that grid (`_tiles`).
 
 `flash_attention` runs `_Flash`, whose forward is K2 (with the lse when a
 gradient is wanted) and whose backward is K5, or the plain twins
@@ -27,6 +34,7 @@ cross-attention keys.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,9 +42,9 @@ import torch
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
 
-# the kernels' query and key tiles (BQ, BK in csrc/flash_core.cuh): the
-# non-empty-tile map is built on this grid
-BLOCK_Q = 64
+# the kernels' query and key tiles (BQ, BK in csrc/flash_hopper.cuh): the
+# padded mask and its non-empty-tile map are built on this grid
+BLOCK_Q = 128
 BLOCK_K = 64
 NEG_INF = -1e30
 M_FLOOR = -1e20
@@ -126,14 +134,19 @@ def _delta(out, dout):
     return (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
 
 
+def bwd_prepass_plain(q, out, dout, scale):
+    """Plain version of K5's pre-pass, the JAX backward's own formulas:
+    (qs = q·bf16(scale) in q's dtype (B, Lq, H, D), delta (B, H, Lq) f32)."""
+    return q * torch.tensor(scale, dtype=q.dtype), _delta(out, dout)
+
+
 def attention_bwd_plain(q, k, v, out, lse, dout, scale, chunk_mask):
     """The chunked backward twin of K5 and K7: (dq, dk, dv) in the input
     dtypes, `chunk_mask(s, e)` giving the (B|1, e - s, Lk) bool mask of
     queries [s, e) or None; dk and dv summed in f32 over the chunks, dq
     formed as the JAX backward does (`cast(dqs) * scale` in q's dtype)."""
     lq = q.shape[1]
-    qs = q * torch.tensor(scale, dtype=q.dtype)
-    delta = _delta(out, dout)
+    qs, delta = bwd_prepass_plain(q, out, dout, scale)
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
@@ -153,17 +166,20 @@ def flash_bwd_plain(q, k, v, mask, out, lse, dout, scale):
                                lambda s, e: None if mask is None else mask[:, s:e])
 
 
-def _tile_map(mask, b, lq, lk):
-    """(B, ceil(Lq/64), ceil(Lk/64)) uint8 map of the mask's non-empty tiles."""
+def _tiles(mask, b, lq, lk):
+    """The kernels' view of a (B|1, Lq, Lk) bool mask: the mask zero-padded
+    to whole tiles, (B|1, ceil(Lq/128)·128, ceil(Lk/64)·64) bool, and the
+    (B, ceil(Lq/128), ceil(Lk/64)) uint8 map of its non-empty tiles."""
     nq, nk = -(-lq // BLOCK_Q), -(-lk // BLOCK_K)
     padded = torch.zeros(mask.shape[0], nq * BLOCK_Q, nk * BLOCK_K, dtype=torch.bool, device=mask.device)
     padded[:, :lq, :lk] = mask
     tile_any = padded.view(-1, nq, BLOCK_Q, nk, BLOCK_K).any(dim=4).any(dim=2)
-    return tile_any.expand(b, nq, nk).contiguous().to(torch.uint8)
+    return padded, tile_any.expand(b, nq, nk).contiguous().to(torch.uint8)
 
 
 def _check(q, k, v, mask, what):
-    """The kernels' contract; returns (mask, tile map, mask batch stride)."""
+    """The kernels' contract; returns (padded mask, tile map, mask batch
+    stride), or (None, None, 0) without a mask."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     if not q.is_cuda:
@@ -171,6 +187,8 @@ def _check(q, k, v, mask, what):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"{what}: {name} must be contiguous bf16 on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary (the kernels copy it by TMA)")
     if k.shape != (b, lk, h, d) or v.shape != (b, lk, h, d):
         raise ValueError(f"{what}: k/v shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
     if not flash_supported(q):
@@ -179,12 +197,23 @@ def _check(q, k, v, mask, what):
         return None, None, 0
     if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[1:] != (lq, lk) or mask.shape[0] not in (1, b):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} {mask.dtype} (needs bool (B|1, Lq, Lk))")
-    mask = mask.contiguous()
-    return mask, _tile_map(mask, b, lq, lk), 0 if mask.shape[0] == 1 else lq * lk
+    padded, tile_any = _tiles(mask, b, lq, lk)
+    return padded, tile_any, 0 if mask.shape[0] == 1 else padded[0].numel()
 
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_FWD_ARGS = [_P] * 7 + [_I] * 5 + [_F, _LL, _P]
+_BWD_ARGS = [_P] * 14 + [_I] * 5 + [_F, _LL, _P]
+
+
+@functools.lru_cache(maxsize=32)
+def _bf16(x: float) -> float:
+    """x rounded to bf16, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
 def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool):
@@ -193,37 +222,37 @@ def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool):
     b, lq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
-    fn = _build.load("flash_attention").flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
-    scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
+    fn = _build.function("flash_attention", "flash_fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(tile_any), out.data_ptr(), _ptr(lse),
-             b, lq, k.shape[1], h, d, scale_bf16, mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
+             b, lq, k.shape[1], h, d, _bf16(scale), mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     ops.LAUNCHES["flash_attention"] += 1
     return out, lse
 
 
 def flash_bwd(q, k, v, mask, out, lse, dout, scale):
-    """K5: (dq, dk, dv) bf16 from K2's out and lse (B, H, Lq) and dout."""
+    """K5: (dq, dk, dv) bf16 from K2's out and lse (B, H, Lq) and dout; the
+    pre-pass (qs, delta) runs on the card inside the launch."""
     mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_bwd")
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous():
-        raise ValueError(f"flash_bwd: dout {tuple(dout.shape)} {dout.dtype} vs q {tuple(q.shape)}")
+    for name, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_bwd: {name} {tuple(t.shape)} {t.dtype} vs q {tuple(q.shape)} (needs contiguous "
+                             "bf16 on a 16-byte boundary)")
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_bwd: lse {tuple(lse.shape)} {lse.dtype} (needs f32 (B, H, Lq))")
-    delta = _delta(out, dout)
-    qs = q * torch.tensor(scale, dtype=q.dtype)  # the JAX backward's pre-scaled queries
     lse = lse.contiguous()
+    lqp = -(-lq // BLOCK_Q) * BLOCK_Q
+    qs = torch.empty_like(q)
+    lse_pad = torch.empty(b, h, lqp, dtype=torch.float32, device=q.device)
+    delta_pad = torch.empty_like(lse_pad)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = _build.load("flash_bwd").flash_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
-    scale_bf16 = float(torch.tensor(scale, dtype=torch.bfloat16))
-    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             _ptr(mask), _ptr(tile_any), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, lq, lk, h, d, scale_bf16, mask_bstride, torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _build.function("flash_bwd", "flash_bwd", _BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+             _ptr(mask), _ptr(tile_any), qs.data_ptr(), lse_pad.data_ptr(), delta_pad.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, lk, h, d, _bf16(scale), mask_bstride,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_bwd")
     ops.LAUNCHES["flash_bwd"] += 1
     return dq, dk, dv

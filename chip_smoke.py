@@ -5,8 +5,9 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. device   needs CUDA (no CPU fallback); prints the card's name and power
               limit as nvidia-smi reports them.
-  2. build    compiles the seven CUDA kernel libraries (nvcc, sm_90a) from
-              csrc/, in parallel.
+  2. build    compiles the ten CUDA kernel libraries (nvcc, sm_90a) from
+              csrc/, in parallel, and prints the registers, spills and shared
+              memory that `-Xptxas -v` reports for K2's and K5's kernels.
   3. kernels  each kernel against its plain PyTorch twin on the card, bf16,
               at the generation path's shapes (K2 also through the attention
               seam as the CLIP towers call it; K6 at the UNet's ds8 and ds16
@@ -22,14 +23,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               least time the card could take (larger of bytes over 3.35 TB/s
               and operations over 989 TFLOP/s bf16; K6 counts 4*D operations
               per set mask bit). K2 and K6 are also timed with the logsumexp
-              output that training needs. The training backward kernels K5
+              output that training needs. K2 and K5, the Hopper kernels
+              (wgmma, TMA), are timed over 50 back-to-back launches: CUDA
+              events, the host's enqueue time per call and the profiler's
+              device time per call; K2 also at every distinct (B, Lq, Lk, H,
+              D, masked) site of one CamContextI2V batch-1 UNet call (its
+              launches captured by wrapping the wrapper's launch), each beside
+              SDPA (with the call's bool mask where masked), with the
+              launch-weighted sum per UNet call; K2's cases include a fully
+              masked query row and the lse at Lk = 77. The training backward kernels K5
               (flash dq/dk/dv) and K7 (epipolar dq/dk/dv, mask recomputed)
               against their chunked twins at the training sites, on the same
               forward outputs and logsumexp: dq, dk and dv each within 4 bf16
               ulps of the twin's max |value|; timed beside the twin, the
               backward alone of scaled dot-product attention (with the
-              materialised bool mask for K7) and the bound (10*D operations
-              per query-key pair, per set mask bit for K7).
+              materialised bool mask for K7, at each K5 site) and the bound
+              (10*D operations per query-key pair, per set mask bit for K7).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -182,6 +191,43 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _profiled_ms(fn, reps: int) -> float | None:
+    """Device time per call of `reps` calls of `fn` by torch.profiler (every
+    kernel the call launches), or None where the profiler shows none."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and "Memcpy" not in e.key:
+                total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        return total / 1e3 / reps if total else None
+    except RuntimeError:
+        return None
+
+
+def _time_kernel(fn, reps: int = 50) -> dict:
+    """A fast kernel's time per call: CUDA events around `reps` back-to-back
+    calls after a warm-up (`ms`), the host clock around the same loop without
+    synchronising (`host_ms`, the enqueue time per call), and the profiler's
+    device time per call for the same loop (`device_ms`)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / reps, host_ms=host, device_ms=_profiled_ms(fn, reps))
+
+
 def _bound(nbytes: float, flops: float) -> dict:
     """The least time for the work: bytes over the memory rate or operations
     over the bf16 tensor-core rate, whichever is larger."""
@@ -204,6 +250,16 @@ def _compare(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
     if not err <= tol:
         _fail(f"{name}: kernel disagrees with its plain twin")
     return err
+
+
+def _compare_lse(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """lse against the twin's: exactly +1e30 on the fully masked rows (and
+    only there), within the tolerance elsewhere."""
+    torch.cuda.synchronize()
+    dead = ref >= 1e30
+    if not torch.equal(got >= 1e30, dead) or not bool((got[dead] == ref[dead]).all()):
+        _fail(f"{name}: the fully masked rows differ ({int(dead.sum())} in the twin)")
+    return _compare(f"{name} ({int(dead.sum())} fully masked rows exact)", got[~dead], ref[~dead])
 
 
 def _block(dev, c: int, heads: int):
@@ -394,15 +450,34 @@ def kernel_checks(dev) -> dict:
                          xla_attention(qv, kv, vv, mask=None, scale=80 ** -0.5)))
     plain = _time_ms(lambda: xla_attention(q, k, v, mask=None, scale=64 ** -0.5))
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+    library = _time_kernel(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))["ms"]
     # the training forward: K2 with its logsumexp, against the twin's
     out_l, lse = fa._launch_fwd(q, k, v, None, 64 ** -0.5, want_lse=True)
     out_t, lse_t = fa.flash_fwd_plain(q, k, v, None, 64 ** -0.5)
-    errs += [_compare("flash with lse (32,1024,5,64) out", out_l, out_t), _compare("flash lse", lse, lse_t)]
-    res["flash_attention"] = dict(max_abs_err=max(errs), ms=_time_ms(lambda: fa.flash_attention(q, k, v)),
-                                  ms_with_lse=_time_ms(lambda: fa._launch_fwd(q, k, v, None, 0.125, want_lse=True)),
+    errs += [_compare("flash with lse (32,1024,5,64) out", out_l, out_t), _compare_lse("flash lse", lse, lse_t)]
+    # fully masked query rows (all of query tile 0, two rows of tile 1 and
+    # row 700) with their lse, and the lse at Lk = 77 (one ragged key tile)
+    dead = torch.rand(4, 1024, 1024, generator=g, device=dev) < 0.5
+    dead[:, :130] = False
+    dead[:, 700] = False
+    out_d, lse_d = fa._launch_fwd(q[:4], k[:4], v[:4], dead, 0.125, want_lse=True)
+    ref_d, rlse_d = fa.flash_fwd_plain(q[:4], k[:4], v[:4], dead, 0.125)
+    errs += [_compare("flash fully masked rows (4,1024,5,64) out", out_d, ref_d),
+             _compare_lse("flash fully masked rows lse", lse_d, rlse_d)]
+    if out_d[:, :130].abs().max().item() != 0 or out_d[:, 700].abs().max().item() != 0:
+        _fail("flash: a fully masked row's output is not 0")
+    out_c, lse_c = fa._launch_fwd(q, kc, vc, None, 0.125, want_lse=True)
+    ref_c, rlse_c = fa.flash_fwd_plain(q, kc, vc, None, 0.125)
+    errs += [_compare("flash Lk=77 with lse out", out_c, ref_c), _compare_lse("flash Lk=77 lse", lse_c, rlse_c)]
+    timed = _time_kernel(lambda: fa.flash_attention(q, k, v))
+    res["flash_attention"] = dict(max_abs_err=max(errs), ms=timed["ms"], host_ms=timed["host_ms"],
+                                  device_ms=timed["device_ms"],
+                                  ms_with_lse=_time_kernel(lambda: fa._launch_fwd(q, k, v, None, 0.125,
+                                                                                  want_lse=True))["ms"],
                                   plain_ms=plain, twin_ms=plain, library_ms=library,
                                   **_bound(_nbytes(q, k, v, q), 4 * 64 * 32 * 5 * 1024 * 1024))
+    print(f"  time flash_attention (32,1024,5,64): kernel {timed['ms']:.4f} ms over 50 launches (host enqueue "
+          f"{timed['host_ms']:.4f} ms per call, profiler device time {timed['device_ms']} ms per call)", flush=True)
 
     # K3: ds1 temporal (N=2048, C=320, 5 heads) with LN+residual and without; init_attn
     # (C=512, 8 heads), ds2 (C=640) and the C=1280 levels
@@ -472,6 +547,77 @@ def kernel_checks(dev) -> dict:
     return res
 
 
+def _unet_call_inputs(model, dev, b: int = 1):
+    """The inputs of one CamContextI2V UNet call at batch `b` (phase 4's
+    step): latents, timestep, context of 77 text + 3 x 256 image tokens,
+    frame stride and the bench camera's condition."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    cfg = model.config.unet
+    camera = model.camera_condition(camcontext_batch(model, b, 9, dev), torch.zeros(b, dtype=torch.long, device=dev))
+    x = torch.randn(b, 16, 32, 32, 8, generator=g, device=dev)
+    ctx = torch.randn(b, 77 + 3 * 256, cfg.context_dim, generator=g, device=dev)
+    return x, torch.full((b,), 999, device=dev), ctx, torch.full((b,), 3, device=dev), camera
+
+
+@torch.no_grad()
+def flash_site_checks(model, dev) -> dict:
+    """K2 at every distinct (B, Lq, Lk, H, D, masked) site of one
+    CamContextI2V batch-1 UNet call: the call's launches are captured by
+    wrapping the wrapper's launch (`_launch_fwd`), then each site is timed
+    on seeded inputs with the call's own mask, beside SDPA (with that bool
+    mask), with its bound (4 D operations per visible pair; bytes: q, k, v,
+    the mask read and out written); the launch-weighted sum per UNet call."""
+    from camc2v_tpu_torch.ops import flash_attention as fa
+
+    seen, masks = {}, {}
+    real = fa._launch_fwd
+
+    def spy(q, k, v, mask, scale, *, want_lse):
+        key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], mask is not None)
+        seen[key] = seen.get(key, 0) + 1
+        if mask is not None and key not in masks:
+            masks[key] = (mask.clone(), scale)
+        masks.setdefault(key, (None, scale))
+        return real(q, k, v, mask, scale, want_lse=want_lse)
+
+    x, t, ctx, fs, camera = _unet_call_inputs(model, dev)
+    fa._launch_fwd = spy
+    try:
+        model.unet(x, t, ctx, fs, camera)
+    finally:
+        fa._launch_fwd = real
+    g = torch.Generator(device=dev).manual_seed(5)
+    sites, total, total_sdpa, total_bound = {}, 0.0, 0.0, 0.0
+    for key, n in sorted(seen.items(), key=lambda kv: -kv[1]):
+        b, lq, lk, h, d, masked = key
+        mask, scale = masks[key]
+        q = torch.randn(b, lq, h, d, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(b, lk, h, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        kern = _time_kernel(lambda: fa._launch_fwd(q, k, v, mask, scale, want_lse=False))
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        am = None if mask is None else mask[:, None]
+        sdpa = _time_kernel(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                                                                     scale=scale))["ms"]
+        pairs = b * h * lq * lk if mask is None else int(mask.expand(b, lq, lk).sum()) * h
+        bound = _bound(_nbytes(q, k, v, q) + (0 if mask is None else _nbytes(mask)), 4 * d * pairs)
+        name = f"({b},{lq},{h},{d}) over {lk}{' masked' if masked else ''}"
+        sites[name] = dict(launches_per_call=n, ms=kern["ms"], host_ms=kern["host_ms"], device_ms=kern["device_ms"],
+                           sdpa_ms=sdpa, **bound)
+        total += n * kern["ms"]
+        total_sdpa += n * sdpa
+        total_bound += n * bound["bound_ms"]
+        print(f"  time flash_attention site {name}: {n} launches per UNet call, kernel {kern['ms']:.4f} ms (host "
+              f"{kern['host_ms']:.4f}, profiler {kern['device_ms']}), SDPA {sdpa:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    launches = sum(seen.values())
+    print(f"  flash_attention over one CamContextI2V batch-1 UNet call: {launches} launches at {len(seen)} sites, "
+          f"launch-weighted kernel {total:.3f} ms, SDPA {total_sdpa:.3f} ms, bound {total_bound:.3f} ms", flush=True)
+    with open(os.path.join(OUT_DIR, "flash_sites.json"), "w") as f:
+        json.dump(sites, f, indent=1)
+    return dict(sites=sites, launches_per_call=launches, weighted_ms=total, weighted_sdpa_ms=total_sdpa,
+                weighted_bound_ms=total_bound)
+
+
 def _sdpa_backward_ms(q, k, v, dout, mask=None, reps: int = 5) -> float:
     """The backward alone of scaled dot-product attention on (B, L, H, D)
     inputs, the library yardstick of K5 and K7 (the port never calls it):
@@ -515,7 +661,7 @@ def backward_checks(dev) -> dict:
         args = (q, k, v, mask, out, lse, dout, 0.125)
         pairs = b * h * lq * lk if mask is None else int(mask.sum()) * h
         return dict(run=lambda: fa.flash_bwd(*args), twin=lambda: fa.flash_bwd_plain(*args), q=q, k=k, v=v,
-                    dout=dout, **_bwd_bound(q, k, v, out, dout, lse, pairs, () if mask is None else (mask,)))
+                    dout=dout, mask=mask, **_bwd_bound(q, k, v, out, dout, lse, pairs, () if mask is None else (mask,)))
 
     # the ds32 epipolar level through K2: 16 frames of 8x8 over 4 registers (first) + 1024 keys
     lines32 = ef.epipolar_lines(bench_F(dev, b=2), 8, 8, 32)
@@ -530,16 +676,20 @@ def backward_checks(dev) -> dict:
     errs, sites = [], {}
     for name, c in flash_sites.items():
         errs.append(_bwd_compare(f"flash_bwd {name}", c["run"](), c["twin"]()))
-        sites[name] = dict(ms=_time_ms(c["run"]), twin_ms=_time_ms(c["twin"], reps=2), bound_ms=c["bound_ms"],
-                           bound_by=c["bound_by"])
-        print(f"  time flash_bwd {name}: kernel {sites[name]['ms']:.4f} ms, twin {sites[name]['twin_ms']:.4f} ms, "
-              f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
-    main = flash_sites["spatial self (32,1024,5,64)"]
-    library = _sdpa_backward_ms(main["q"], main["k"], main["v"], main["dout"])
+        kern = _time_kernel(c["run"])
+        mask = None if c["mask"] is None else c["mask"][:, None]
+        sites[name] = dict(ms=kern["ms"], host_ms=kern["host_ms"], device_ms=kern["device_ms"],
+                           twin_ms=_time_ms(c["twin"], reps=2),
+                           sdpa_backward_ms=_sdpa_backward_ms(c["q"], c["k"], c["v"], c["dout"], mask=mask, reps=20),
+                           bound_ms=c["bound_ms"], bound_by=c["bound_by"])
+        st = sites[name]
+        print(f"  time flash_bwd {name}: kernel {st['ms']:.4f} ms over 50 launches (host {st['host_ms']:.4f}, "
+              f"profiler {st['device_ms']}), twin {st['twin_ms']:.4f} ms, SDPA backward "
+              f"{st['sdpa_backward_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})", flush=True)
     s = sites["spatial self (32,1024,5,64)"]
-    print(f"  time flash_bwd spatial self: library (SDPA backward) {library:.4f} ms", flush=True)
-    res["flash_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], plain_ms=s["twin_ms"], twin_ms=s["twin_ms"],
-                            bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=sites)
+    res["flash_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], host_ms=s["host_ms"], device_ms=s["device_ms"],
+                            plain_ms=s["twin_ms"], twin_ms=s["twin_ms"], bound_ms=s["bound_ms"],
+                            bound_by=s["bound_by"], library_ms=s["sdpa_backward_ms"], sites=sites)
 
     def epi_case(F, t, h, w, ds, heads, nreg):
         lines = ef.epipolar_lines(F, h, w, ds)
@@ -1257,17 +1407,22 @@ def main() -> None:
 
     secs = _build.build_all()
     print(f"[2 build] {len(_build.KERNELS)} kernel libraries built in {secs:.1f} s", flush=True)
+    for name in ("flash_attention", "flash_bwd"):
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()[:160]}", flush=True)
 
     print("[3 kernels] kernel vs plain twin, bf16", flush=True)
     dc = presets.build("dynamicrafter_256", seed=1234)  # pins the card's numerics before the checks
+    cc = presets.build("camcontexti2v_256", seed=4321)
     checks = kernel_checks(dev)
+    checks["flash_attention"]["unet_call_sites"] = flash_site_checks(cc, dev)
     checks.update(backward_checks(dev))
     checks.update(route_kernel_checks(dev))
     torch.cuda.empty_cache()
 
     print("[4 unet] full-width denoise steps", flush=True)
     unet_check(dc, dev)
-    cc = presets.build("camcontexti2v_256", seed=4321)
     step = camcontext_unet_check(cc, dev)
     del cc  # one model on the card at a time, so each request's peak memory is its own
     torch.cuda.empty_cache()
