@@ -62,7 +62,7 @@ epipolar_precomp_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, 
   PenMask m{pen, tile_any, Lq, thw, nreg, pb, block_q, sub, cols, Lq / block_q, tile};
   const int lk_valid = thw + nreg;
   const int nk = (lk_valid + flash::BK - 1) / flash::BK;
-  flash::attention_body(q, k, v, out, nullptr, Lq, Lk, lk_valid, H, D, scale, nk, smem, m, blockIdx.x / H,
+  flash::attention_body(q, k, v, out, Lq, Lk, lk_valid, H, D, scale, nk, smem, m, blockIdx.x / H,
                         blockIdx.x % H, blockIdx.y);
 }
 

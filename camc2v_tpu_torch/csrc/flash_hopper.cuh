@@ -1,19 +1,21 @@
-// The Hopper attention core of K2 and K5 (flash attention with a bool mask
-// shared by the heads): tile geometry, the mask policy, and the sm_90a
-// building blocks their kernels are made of.
+// The Hopper attention core of K2, K5, K6 and K7: tile geometry, the mask
+// policy of K2 and K5 (a bool mask shared by the heads), and the sm_90a
+// building blocks their kernels are made of. The kernel bodies, templates on
+// the mask policy, are in flash_hopper_kernels.cuh; K6 and K7's policy, the
+// epipolar line mask, is in epipolar_mask.cuh.
 //
 // Tiles. Query tiles of BQ = 128 rows (the forward's block: two consumer
-// warpgroups of 64 rows each) and key tiles of BK = 64 keys; the wrapper's
-// non-empty-tile map (`ops/flash_attention.py::_tile_map`) is built on this
-// grid. Every bf16 tile of (rows x D) lives in shared memory as DP / 64
-// "atoms" of (rows x 64) bf16, DP = D rounded up to 64, each atom 128-byte
-// rows in the 128B swizzle (16-byte chunk c of row r stored at chunk c ^ (r %
-// 8)), which is what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes and
-// what a wgmma descriptor with layout type 1 reads. A tensor map over
-// (D, H, L, B) with box (64, 1, rows, 1) fills one atom per copy and
-// zero-fills the ragged row edge and the columns past D (D = 80 is read as
-// two atoms, the second 16 columns wide and 48 columns of zeros: the tensors
-// are never padded).
+// warpgroups of 64 rows each) and key tiles of BK = 64 keys; the tile maps
+// that skip empty tiles (`ops/flash_attention.py::_tiles`,
+// `ops/epipolar_flash.py::kernel_tile_map`) are built on this grid. Every
+// bf16 tile of (rows x D) lives in shared memory as DP / 64 "atoms" of
+// (rows x 64) bf16, DP = D rounded up to 64, each atom 128-byte rows in the
+// 128B swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)), which
+// is what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes and what a wgmma
+// descriptor with layout type 1 reads. A tensor map over (D, H, L, B) with
+// box (64, 1, rows, 1) fills one atom per copy and zero-fills the ragged row
+// edge and the columns past D (D = 80 is read as two atoms, the second 16
+// columns wide and 48 columns of zeros: the tensors are never padded).
 //
 // Products. `wgmma.mma_async` m64nNk16, bf16 inputs, f32 accumulators in
 // registers. A from shared memory (K-major: Q, K, V, dO rows, D contiguous)
@@ -35,18 +37,26 @@
 // rows would give a score of 0); a fully masked row gives 0 and lse +1e30.
 // exp(x - m) is computed as exp2(x log2 e - m log2 e) with ex2.approx.
 //
-// The mask policy. A policy type has four members, called by the kernels:
+// The mask policy. A policy type has these members, called by the kernels:
+//   static int stage_size(rows)   bytes of a ring slot's policy data for a
+//                                 tile of `rows` query rows;
 //   bool skip(b, qt, kt)          tile (query tile qt of BQ rows, key tile kt)
 //                                 holds no visible pair: nothing is loaded;
-//   uint32_t stage(...)           the producer's copy of the policy's data
-//                                 for one tile into the stage's shared
-//                                 buffer, on the stage's barrier; returns
-//                                 the bytes it adds to the barrier;
-//   bool visible(tile, r, c)      the bit of row r (query) and key c of the
-//                                 staged tile, on fragment coordinates;
+//   void fill(slot, rows, lane, j0)  the producer warp's plain shared-memory
+//                                 writes of the slot, every lane, before the
+//                                 copies are issued;
+//   uint32_t bytes(rows, j0)      the bytes stage() adds to the barrier;
+//   void stage(slot, map, bar, rows, b, q0, j0)  the producer's
+//                                 asynchronous copies of the policy's data
+//                                 for one tile into the slot, on the stage's
+//                                 barrier;
+//   bool tested(j0, Lk)           key tile j0 has pairs whose bit must be
+//                                 tested (else all its keys are visible);
+//   bool visible(slot, r, c, j0, Lk)  the bit of row r (query) and key c of
+//                                 the staged tile, on fragment coordinates;
 //   float score(r, c, s)          the logit of a visible pair from its
 //                                 scaled product s.
-// K6, K6p and K7 still run on flash_core.cuh and its policies.
+// K6p still runs on flash_core.cuh and its policy.
 #pragma once
 
 #include <cuda.h>
@@ -265,23 +275,27 @@ __device__ __forceinline__ void a_fragment(const float (&d)[N], int kk, uint32_t
 // bool mask zero-padded to whole tiles, shared by the heads) with its
 // (B, nq, nk) non-empty-tile map. The producer stages a (rows x BK) tile of
 // it into shared memory by TMA; the consumers read their fragment's bits
-// there. Keys at or past Lk are zero in the padded mask.
+// there. Keys at or past Lk are zero in the padded mask; without a mask
+// they are tested on the ragged last tile only.
 struct BoolMask {
   const uint8_t* tile_any;  // null: no tile is skipped
   int nq, nk;
   bool on;    // a mask is given
   bool shared;  // one mask for the whole batch
 
+  static constexpr int stage_size(int rows) { return rows * BK; }
   __device__ bool skip(int b, int qt, int kt) const {
     return tile_any != nullptr && !tile_any[((long long)b * nq + qt) * nk + kt];
   }
-  __device__ uint32_t stage(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int rows, int b, int q0,
-                            int j0) const {
-    if (!on) return 0;
-    tma_load_3d(dst, map, bar, j0, q0, shared ? 0 : b);
-    return rows * BK;
+  __device__ void fill(uint8_t*, int, int, int) const {}
+  __device__ uint32_t bytes(int rows, int) const { return on ? rows * BK : 0; }
+  __device__ void stage(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int, int b, int q0, int j0) const {
+    if (on) tma_load_3d(dst, map, bar, j0, q0, shared ? 0 : b);
   }
-  __device__ bool visible(const uint8_t* tile, int r, int c) const { return tile[r * BK + c] != 0; }
+  __device__ bool tested(int j0, int Lk) const { return on || j0 + BK > Lk; }
+  __device__ bool visible(const uint8_t* tile, int r, int c, int j0, int Lk) const {
+    return on ? tile[r * BK + c] != 0 : j0 + c < Lk;
+  }
   __device__ float score(int, int, float s) const { return s; }
 };
 

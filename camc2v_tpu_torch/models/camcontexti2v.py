@@ -83,7 +83,7 @@ class CamContextI2V(CamI2V):
         if self._adaptor_kernel_ok(hw, masking):
             blk = ef.BLOCK_K if hw % ef.BLOCK_K == 0 else hw
             lines = ef.epipolar_lines(G.conditional_fundamental(*args), hl, wl, 8)
-            tiles = ef.epipolar_tile_map(lines, 1 + n_ctx, hl, wl, 8, block_q=ef.BLOCK_Q, block_k=blk)
+            tiles = ef.kernel_tile_map(lines, 1 + n_ctx, hl, wl, 8)
             img_cat = self.adaptor(z_tokens, use_mask=True, lines=lines, geom=(1 + n_ctx, hl, wl, 8, blk),
                                    tile_any=tiles)
         else:

@@ -60,7 +60,9 @@ def prepare_plain_epipolar(F: torch.Tensor, cfg: EpipolarConfig) -> dict[int, di
     """{pixel_ds: {"lines", "tile_any"?}} for every level of the config, from
     the (B, T, T, 3, 3) fundamental matrices: geometry only, so a request
     computes it once for all its denoise steps. pixel_ds = 8 * ar for ar in
-    `attention_resolution` (the Epipolar module's `origin_h // h` key)."""
+    `attention_resolution` (the Epipolar module's `origin_h // h` key). The
+    in-kernel levels (the JAX rule) get the kernels' tile map, at their own
+    128 x 64 tiling."""
     require_plain(cfg)
     t = F.shape[1]
     prep: dict[int, dict] = {}
@@ -74,7 +76,7 @@ def prepare_plain_epipolar(F: torch.Tensor, cfg: EpipolarConfig) -> dict[int, di
         hw = h * w
         block_k = ef.choose_block_k(hw)
         if ef.kernel_tiling_ok(t, hw, block_k):
-            entry["tile_any"] = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, block_k)
+            entry["tile_any"] = ef.kernel_tile_map(lines, t, h, w, ds)
         prep[ds] = entry
     return prep
 

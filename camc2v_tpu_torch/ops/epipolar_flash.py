@@ -9,27 +9,34 @@ of query i and frame key j is recomputed from i's normalised epipolar line
 (a, b, c) in j's frame as |a*px + b*py + c| < ds*sqrt(2)/2, so no (B, Lq, Lk)
 array exists. Register tokens sit at the END of the key axis and are always
 visible (attention is invariant to the reordering from the reference's front
-position). Key subtiles that the hull bitmap `tile_any` marks empty for a
-256-query tile are skipped; NaN lines (F == 0) hide their whole key frame and
-fully masked rows give 0. The tile map keeps the JAX layout, registers in a
-trailing block_k tile whose first subtile is always set; the keys themselves
-are not padded to it.
+position). NaN lines (F == 0) hide their whole key frame and fully masked
+rows give 0. The keys are not padded to a tile.
 
 The geometry helpers (`epipolar_lines`, `epipolar_tile_map`,
-`materialize_mask`, the tiling rules) are exact ports of the JAX functions:
-the tile map and the lines feed the kernel, and the CPU tests hold them to
-the JAX package bit for bit. Every mask distance is formed in one operation
-order, `(a*px + b*py) + c` with each product and sum rounded to f32 (eager
-torch elementwise ops here, `__fmul_rn`/`__fadd_rn` in the kernel), so the
-kernel and its twin agree on every bit.
+`materialize_mask`, the tiling rules) are exact ports of the JAX functions,
+held to the JAX package bit for bit by the CPU tests. Every mask distance is
+formed in one operation order, `(a*px + b*py) + c` with each product and sum
+rounded to f32 (eager torch elementwise ops here, `__fmul_rn`/`__fadd_rn` in
+the kernel), so the kernel and its twin agree on every bit.
+
+Two tilings. The canonical one (BLOCK_Q, BLOCK_K, SUBTILE: the JAX
+package's) decides, by the JAX rule, which levels take the in-kernel mask
+(`choose_block_k`, `kernel_tiling_ok`) and names their layout. The kernels
+run on the Hopper core's 128-query x 64-key tiles (`csrc/flash_hopper.cuh`)
+and skip the tiles that the hull map built at that tiling marks empty
+(`kernel_tile_map`: the same JAX rule at block_q = 128, block_k = 64, the
+register column at t*h*w / 64); that map is the kernels' contract.
 
 K7 (`csrc/epipolar_bwd.cu`) replaces the Pallas kernels `_v2_bwd_dq_kernel`
 / `_v2_bwd_dkv_kernel` (`_epipolar_flash_bwd_impl`, the custom VJP of
 `epipolar_flash_attention`): dq, dk, dv from K6's logsumexp with the mask
 bits recomputed from the lines by the same policy (`csrc/epipolar_mask.cuh`)
-and the same subtile skips. `epipolar_flash_attention` runs `_Epipolar`:
-K6 (with the lse when a gradient is wanted) and K7, or the plain twins;
-lines and tile map get no gradient.
+and the same tile skips; its pre-pass kernel forms qs = bf16(q * scale) and
+delta on the card (`bwd_prepass_plain` is its plain version). K6 and K7 are
+the Hopper core's forward and backward bodies (`csrc/flash_hopper_kernels.cuh`),
+K2's and K5's, under the line-mask policy. `epipolar_flash_attention` runs
+`_Epipolar`: K6 (with the lse when a gradient is wanted) and K7, or the plain
+twins; lines and tile map get no gradient.
 
 K6p (`csrc/epipolar_precomp.cu`) replaces `_v2p_kernel`, the path of
 `epipolar_flash_attention(..., penalties=)`: K6 with the mask read from
@@ -44,9 +51,9 @@ backward is K7's (or its twin's), on the lines' mask, as in the JAX package.
 
 The least time the function needs counts 4*D operations per query-key pair
 whose mask bit is set (`mask_pairs`; the backward 10*D); the work K6 does
-after skipping counts every pair of the subtiles the map leaves on
-(`visible_pairs`). K6p's bound adds the bytes of the penalty subtiles the
-map leaves on (`visible_penalty_bytes`).
+after skipping counts every pair of the tiles the map leaves on
+(`visible_pairs`). K6p's bound adds the bytes of the penalty tiles the map
+leaves on (`visible_penalty_bytes`).
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ import torch
 
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
-from camc2v_tpu_torch.ops.flash_attention import LSE_MASKED, _delta, _ptr, attention_bwd_plain
+from camc2v_tpu_torch.ops import flash_attention as fa
+from camc2v_tpu_torch.ops.flash_attention import LSE_MASKED, _bf16, _ptr, attention_bwd_plain
 
 # canonical tiling of the tile maps (the JAX package's, so maps agree bit for
 # bit): 256-query rows, 1024-key tiles, skip granularity SUBTILE
@@ -68,9 +76,10 @@ BLOCK_K = 1024
 SUBTILE = 256
 NEG_INF = -1e30
 M_FLOOR = -1e20
-# the kernel's query and key tiles (BQ, BK in csrc/flash_core.cuh)
-KERNEL_BQ = 64
-KERNEL_BK = 64
+# the kernels' query and key tiles (BQ, BK in csrc/flash_hopper.cuh, K2's
+# too): the tile map the kernels read is built at this tiling (`kernel_tile_map`)
+KERNEL_BQ = fa.BLOCK_Q
+KERNEL_BK = fa.BLOCK_K
 TWIN_CHUNK = 512  # queries per chunk of the plain twin
 
 
@@ -156,6 +165,15 @@ def epipolar_tile_map(lines: torch.Tensor, t: int, h: int, w: int, downsample: i
     reg = torch.zeros(b, nq, nsub, dtype=torch.bool, device=lines.device)
     reg[..., 0] = True
     return torch.cat([hit, reg], dim=-1).to(torch.int32)
+
+
+def kernel_tile_map(lines: torch.Tensor, t: int, h: int, w: int, downsample: int) -> torch.Tensor:
+    """(B, Lq/128, t*h*w/64 + 1) int32: `epipolar_tile_map` at the kernels'
+    own tiling (KERNEL_BQ queries x KERNEL_BK keys, the register column
+    last), the map K6, K6p and K7 read to skip their empty tiles. Its hull
+    rule needs 64-key subtiles of whole image rows (w dividing 64); the
+    kernel wrappers check that."""
+    return epipolar_tile_map(lines, t, h, w, downsample, KERNEL_BQ, KERNEL_BK)
 
 
 def _distance_mask(lines: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor, thresh: float) -> torch.Tensor:
@@ -277,11 +295,11 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     q: (B, Lq, H, D); Lq need not be t*h*w (the adaptor's learned queries
     attend over 1 + n_ctx key frames), lines carry one row per query.
     k, v: (B, t*h*w + num_registers, H, D), the register tokens last.
-    lines: (B, Lq, t, 3) from `epipolar_lines`. tile_any: (B, Lq/block_q,
-    nK*nsub) from `epipolar_tile_map` with the same block_q/block_k (its
-    trailing block_k tile holds the register column), built for the kernels
-    when absent. penalties: (pb, Lq, t*h*w) from `materialize_penalties`,
-    b % pb == 0, in place of the line-distance mask (K6p).
+    lines: (B, Lq, t, 3) from `epipolar_lines`. block_q / block_k name the
+    layout's canonical tiling (`choose_block_k`). tile_any: the kernels' map
+    from `kernel_tile_map` (built when absent; the plain twins do not read
+    it). penalties: (pb, Lq, t*h*w) from `materialize_penalties`, b % pb ==
+    0, in place of the line-distance mask (K6p).
 
     CPU tensors take the plain twins; CUDA tensors launch K6 (or K6p) + K7
     (bf16, head dim a multiple of 16 up to 128, else they raise) unless
@@ -309,7 +327,7 @@ def epipolar_flash_attention(q, k, v, lines, *, t: int, h: int, w: int, downsamp
     geom = dict(t=t, h=h, w=w, downsample=downsample, num_registers=num_registers, scale=scale,
                 block_q=block_q, block_k=block_k)
     if kernel and tile_any is None:
-        tile_any = epipolar_tile_map(lines, t, h, w, downsample, block_q, block_k)
+        tile_any = kernel_tile_map(lines, t, h, w, downsample)
     return _Epipolar.apply(q, k, v, lines, tile_any, penalties, geom, kernel)
 
 
@@ -353,50 +371,59 @@ class _Epipolar(torch.autograd.Function):
 
 
 def _kernel_args(q, k, v, lines, tile_any, geom, what):
-    """K6/K7's contract: (lines f32, tile map int32, sub, cols, scale as bf16,
-    thresh) after the checks."""
+    """K6/K6p/K7's contract, checked: (tile map int32 at the kernels' tiling,
+    its columns, scale rounded to bf16, thresh)."""
     b, lq, heads, d = q.shape
-    t, h, w, block_q, block_k = geom["t"], geom["h"], geom["w"], geom["block_q"], geom["block_k"]
+    t, h, w = geom["t"], geom["h"], geom["w"]
     hw = h * w
     if not q.is_cuda:
         raise ValueError(f"{what}: unsupported device {q.device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{what}: {name} must be contiguous bf16 on {q.device}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary (the kernels copy it by TMA)")
     lk = k.shape[1]
     if k.shape != (b, lk, heads, d) or v.shape != (b, lk, heads, d):
         raise ValueError(f"{what}: k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    sub = min(SUBTILE, block_k, hw)
-    if (not head_dim_ok(d) or hw % KERNEL_BK or sub % KERNEL_BK or block_q % KERNEL_BQ
+    if (not head_dim_ok(d) or hw % KERNEL_BK or KERNEL_BK % w or lq % KERNEL_BQ
             or geom["num_registers"] > KERNEL_BK):
-        raise ValueError(f"{what}: K6/K7 need a head dim that is a multiple of 16 up to 128 "
-                         f"(got {d}), 64-key tiles inside one frame and one subtile (hw {hw}, subtile {sub}), "
-                         f"block_q a multiple of 64 (got {block_q}) and at most 64 registers")
+        raise ValueError(f"{what}: the kernels need a head dim that is a multiple of 16 up to 128 (got {d}), "
+                         f"64-key tiles of whole image rows inside one frame (hw {hw}, w {w}), Lq a multiple "
+                         f"of {KERNEL_BQ} (got {lq}) and at most {KERNEL_BK} registers")
     if tile_any is None:
-        tile_any = epipolar_tile_map(lines, t, h, w, geom["downsample"], block_q, block_k)
-    cols = (t * hw + block_k) // sub
-    if tile_any.shape != (b, lq // block_q, cols):
-        raise ValueError(f"{what}: tile_any {tuple(tile_any.shape)} vs {(b, lq // block_q, cols)}"
-                         " (built for another tiling?)")
-    scale_bf16 = float(torch.tensor(geom["scale"], dtype=torch.bfloat16))
+        tile_any = kernel_tile_map(lines, t, h, w, geom["downsample"])
+    cols = t * hw // KERNEL_BK + 1
+    if tile_any.shape != (b, lq // KERNEL_BQ, cols):
+        raise ValueError(f"{what}: tile_any {tuple(tile_any.shape)} vs {(b, lq // KERNEL_BQ, cols)}"
+                         " (the map at the kernels' tiling, `kernel_tile_map`)")
     thresh = geom["downsample"] * math.sqrt(2.0) / 2.0
-    return (lines.to(torch.float32).contiguous(), tile_any.to(torch.int32).contiguous(), sub, cols, scale_bf16,
-            thresh)
+    return tile_any.to(torch.int32).contiguous(), cols, _bf16(geom["scale"]), thresh
+
+
+def _kernel_lines(lines):
+    """The lines as the kernels stage them: (B, t, Lq, 3) f32, each frame's
+    query rows contiguous."""
+    return lines.to(torch.float32).transpose(1, 2).contiguous()
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P] * 7 + [_I] * 10 + [_F] * 3 + [_P]
+_EPI_BWD_ARGS = [_P] * 14 + [_I] * 10 + [_F] * 3 + [_P]
+_PRECOMP_ARGS = [_P] * 6 + [_I] * 11 + [_F, _P]
 
 
 def _launch_fwd(q, k, v, lines, tile_any, geom, *, want_lse: bool):
     """K6: (out, lse (B, H, Lq) f32 when `want_lse`, else None)."""
-    lines, tile_any, sub, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom,
-                                                                  "epipolar_flash_attention")
+    tile_any, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom, "epipolar_flash_attention")
     b, lq, heads, d = q.shape
+    lines_t = _kernel_lines(lines)
     out = torch.empty_like(q)
     lse = torch.empty(b, heads, lq, dtype=torch.float32, device=q.device) if want_lse else None
-    fn = _build.load("epipolar_flash").epipolar_flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lines.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
+    fn = _build.function("epipolar_flash", "epipolar_flash_fwd", _FWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lines_t.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
              _ptr(lse), b, lq, k.shape[1], heads, d, geom["t"], geom["h"] * geom["w"], geom["w"],
-             geom["num_registers"], geom["block_q"], sub, cols, scale_bf16, float(geom["downsample"]), thresh,
+             geom["num_registers"], cols, scale_bf16, float(geom["downsample"]), thresh,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "epipolar_flash_attention")
     ops.LAUNCHES["epipolar_flash"] += 1
@@ -406,18 +433,16 @@ def _launch_fwd(q, k, v, lines, tile_any, geom, *, want_lse: bool):
 def _launch_precomp(q, k, v, lines, penalties, tile_any, geom):
     """K6p: out, the mask read from the (pb, Lq, t*hw) bf16 penalties."""
     b, lq, heads, d = q.shape
-    _, tile_any, sub, cols, scale_bf16, _ = _kernel_args(q, k, v, lines, tile_any, geom,
-                                                          "epipolar_flash_attention(penalties)")
+    tile_any, cols, scale_bf16, _ = _kernel_args(q, k, v, lines, tile_any, geom,
+                                                 "epipolar_flash_attention(penalties)")
     if penalties.dtype != torch.bfloat16 or penalties.device != q.device:
         raise ValueError(f"epipolar_flash_attention: penalties must be bf16 on {q.device} (got {penalties.dtype})")
     penalties = penalties.contiguous()
     out = torch.empty_like(q)
-    fn = _build.load("epipolar_precomp").epipolar_precomp_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    fn = _build.function("epipolar_precomp", "epipolar_precomp_fwd", _PRECOMP_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), penalties.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
              b, lq, k.shape[1], heads, d, geom["t"] * geom["h"] * geom["w"], geom["num_registers"],
-             penalties.shape[0], geom["block_q"], sub, cols, scale_bf16,
+             penalties.shape[0], KERNEL_BQ, KERNEL_BK, cols, scale_bf16,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "epipolar_flash_attention(penalties)")
     ops.LAUNCHES["epipolar_flash_precomp"] += 1
@@ -427,26 +452,27 @@ def _launch_precomp(q, k, v, lines, penalties, tile_any, geom):
 def epipolar_flash_bwd(q, k, v, lines, tile_any, out, lse, dout, geom):
     """K7: (dq, dk, dv) bf16 from K6's out and lse (B, H, Lq) and dout; geom
     as `epipolar_flash_attention` takes it (t, h, w, downsample,
-    num_registers, scale, block_q, block_k)."""
-    lines, tile_any, sub, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom,
-                                                                  "epipolar_flash_bwd")
+    num_registers, scale); the pre-pass (qs, delta) runs on the card inside
+    the launch."""
+    tile_any, cols, scale_bf16, thresh = _kernel_args(q, k, v, lines, tile_any, geom, "epipolar_flash_bwd")
     b, lq, heads, d = q.shape
-    if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous():
-        raise ValueError(f"epipolar_flash_bwd: dout {tuple(dout.shape)} {dout.dtype} vs q {tuple(q.shape)}")
+    for name, x in (("dout", dout), ("out", out)):
+        if x.shape != q.shape or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"epipolar_flash_bwd: {name} {tuple(x.shape)} {x.dtype} vs q {tuple(q.shape)} (needs "
+                             "contiguous bf16 on a 16-byte boundary)")
     if lse.shape != (b, heads, lq) or lse.dtype != torch.float32:
         raise ValueError(f"epipolar_flash_bwd: lse {tuple(lse.shape)} {lse.dtype} (needs f32 (B, H, Lq))")
-    delta = _delta(out, dout)
-    qs = q * torch.tensor(geom["scale"], dtype=q.dtype)  # the JAX backward's pre-scaled queries
     lse = lse.contiguous()
+    lines_t = _kernel_lines(lines)
+    qs = torch.empty_like(q)
+    lse_pad, delta = torch.empty_like(lse), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = _build.load("epipolar_bwd").epipolar_flash_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-             lines.data_ptr(), tile_any.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, lq, k.shape[1], heads, d, geom["t"], geom["h"] * geom["w"], geom["w"], geom["num_registers"],
-             geom["block_q"], sub, cols, scale_bf16, float(geom["downsample"]), thresh,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    fn = _build.function("epipolar_bwd", "epipolar_flash_bwd", _EPI_BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+             lines_t.data_ptr(), tile_any.data_ptr(), qs.data_ptr(), lse_pad.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, lq, k.shape[1], heads, d, geom["t"],
+             geom["h"] * geom["w"], geom["w"], geom["num_registers"], cols, scale_bf16,
+             float(geom["downsample"]), thresh, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "epipolar_flash_bwd")
     ops.LAUNCHES["epipolar_bwd"] += 1
     return dq, dk, dv

@@ -7,38 +7,44 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               limit as nvidia-smi reports them.
   2. build    compiles the ten CUDA kernel libraries (nvcc, sm_90a) from
               csrc/, in parallel, and prints the registers, spills and shared
-              memory that `-Xptxas -v` reports for K2's and K5's kernels.
+              memory that `-Xptxas -v` reports for the Hopper-core kernels
+              (K2, K5, K6, K7).
   3. kernels  each kernel against its plain PyTorch twin on the card, bf16,
               at the generation path's shapes (K2 also through the attention
               seam as the CLIP towers call it; K6 at the UNet's ds8 and ds16
-              sites, the adaptor's and with zero-F frame pairs, on the
-              flagship request's camera geometry): max abs error against the
-              stated tolerance. Times (CUDA events) of the kernel, of the
-              model's plain route for the same op (what the seam runs inside
-              `ops.plain_twins()`: bf16 cuBLAS projections for K3 and K4),
-              of the f32 reference twin, and of the one PyTorch library call
+              sites at batch 1 and 2, the adaptor's and with zero-F frame
+              pairs, on the flagship request's camera geometry, and with
+              fully masked rows): max abs error against the stated
+              tolerance. Times (CUDA events) of the kernel, of the model's
+              plain route for the same op (what the seam runs inside
+              `ops.plain_twins()`: bf16 cuBLAS projections for K3 and K4), of
+              the f32 reference twin, and of the one PyTorch library call
               that computes the same function where there is one
-              (`F.group_norm` for K1, scaled dot-product attention for K2 and,
-              with the materialised bool mask, for K6); the bound is the
-              least time the card could take (larger of bytes over 3.35 TB/s
-              and operations over 989 TFLOP/s bf16; K6 counts 4*D operations
-              per set mask bit). K2 and K6 are also timed with the logsumexp
-              output that training needs. K2 and K5, the Hopper kernels
-              (wgmma, TMA), are timed over 50 back-to-back launches: CUDA
-              events, the host's enqueue time per call and the profiler's
-              device time per call; K2 also at every distinct (B, Lq, Lk, H,
-              D, masked) site of one CamContextI2V batch-1 UNet call (its
-              launches captured by wrapping the wrapper's launch), each beside
-              SDPA (with the call's bool mask where masked), with the
+              (`F.group_norm` for K1, scaled dot-product attention for K2
+              and, with the materialised bool mask, for K6 at every site);
+              the bound is the least time the card could take (larger of
+              bytes over 3.35 TB/s and operations over 989 TFLOP/s bf16; K6
+              counts 4*D operations per set mask bit). K2 and K6 are also
+              timed with the logsumexp output that training needs. The
+              Hopper-core kernels (wgmma, TMA: K2, K5, K6, K7) are timed over
+              50 back-to-back launches: CUDA events, the host's enqueue time
+              per call and the profiler's device time per call; K6 and K7
+              also print the pairs they compute after skipping as a multiple
+              of the set mask bits, beside the multiple the JAX-tiling map
+              would leave. K2 also at every distinct (B, Lq, Lk, H, D,
+              masked) site of one CamContextI2V batch-1 UNet call (its
+              launches captured by wrapping the wrapper's launch), each
+              beside SDPA (with the call's bool mask where masked), with the
               launch-weighted sum per UNet call; K2's cases include a fully
-              masked query row and the lse at Lk = 77. The training backward kernels K5
-              (flash dq/dk/dv) and K7 (epipolar dq/dk/dv, mask recomputed)
-              against their chunked twins at the training sites, on the same
-              forward outputs and logsumexp: dq, dk and dv each within 4 bf16
-              ulps of the twin's max |value|; timed beside the twin, the
-              backward alone of scaled dot-product attention (with the
-              materialised bool mask for K7, at each K5 site) and the bound
-              (10*D operations per query-key pair, per set mask bit for K7).
+              masked query row and the lse at Lk = 77. The training backward
+              kernels K5 (flash dq/dk/dv) and K7 (epipolar dq/dk/dv, mask
+              recomputed) against their chunked twins at the training
+              sites, on the same forward outputs and logsumexp: dq, dk and
+              dv each within 4 bf16 ulps of the twin's max |value|; timed
+              beside the twin, the backward alone of scaled dot-product
+              attention (with the materialised bool mask at each K7 site,
+              at each K5 site) and the bound (10*D operations per query-key
+              pair, per set mask bit for K7).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -111,7 +117,7 @@ import torch
 TOL_ULPS = 4  # kernel vs twin: 4 bf16 ulps (2^-6) of the reference's max |value|
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
-OUT_DIR = "smoke_out"  # per-site K6 times, the step profile and a JSON summary
+OUT_DIR = "smoke_out"  # per-site K2/K5/K6/K7 times, the step profiles and a JSON summary
 # the bench.py request recipe (25-step DDIM, CFG 7.5, rescale 0.7, eta 1,
 # uniform_trailing; the package's `sample` defaults are the JAX package's)
 BENCH_RECIPE = dict(ddim_steps=25, ddim_eta=1.0, guidance_scale=7.5, guidance_rescale=0.7,
@@ -302,8 +308,38 @@ def bench_F(dev, b: int = 1, perturb: bool = True):
     return G.fundamental_matrix(K, pairs[..., :3, :3], tvec)
 
 
+def _epipolar_mask(lines, t, h, w, ds, nreg):
+    """The (B, 1, Lq, t*hw + nreg) bool mask K6 computes, registers last:
+    the SDPA yardstick's mask."""
+    from camc2v_tpu_torch.ops import epipolar_flash as ef
+
+    b, lq = lines.shape[:2]
+    return torch.cat([ef.materialize_mask(lines, t, h, w, ds),
+                      torch.ones(b, lq, nreg, dtype=torch.bool, device=lines.device)], dim=-1)[:, None]
+
+
+def _skip_counts(lines, tiles, heads, t, h, w, ds, nreg) -> dict:
+    """The set mask bits (the bound's work), the pairs of the tiles the
+    kernels' map leaves on (their work after skipping) and, for comparison,
+    of the subtiles the JAX-tiling map leaves on, with the share of tiles
+    skipped."""
+    from camc2v_tpu_torch.ops import epipolar_flash as ef
+
+    kw = dict(t=t, h=h, w=w, downsample=ds, num_registers=nreg)
+    hw, bk = h * w, ef.choose_block_k(h * w)
+    pairs = ef.mask_pairs(lines, heads=heads, **kw)
+    after = ef.visible_pairs(tiles, heads=heads, t=t, hw=hw, num_registers=nreg, block_q=ef.KERNEL_BQ,
+                             block_k=ef.KERNEL_BK)
+    coarse = ef.visible_pairs(ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk), heads=heads, t=t, hw=hw,
+                              num_registers=nreg, block_k=bk)
+    return dict(pairs=pairs, pairs_after_skip=after, after_skip_x=after / pairs, jax_map_after_skip_x=coarse / pairs,
+                skip=1 - tiles.float().mean().item())
+
+
 def epipolar_checks(dev, g) -> dict:
-    """K6 against its chunked twin at the flagship's sites."""
+    """K6 against its chunked twin at the flagship's sites, each timed (50
+    launches: events, host enqueue, profiler device time) beside SDPA with
+    the site's bool mask."""
     from camc2v_tpu_torch.camera import geometry as G
     from camc2v_tpu_torch.ops import epipolar_flash as ef
 
@@ -314,7 +350,7 @@ def epipolar_checks(dev, g) -> dict:
         b, lq = lines.shape[0], lines.shape[1]
         hw = h * w
         bk = ef.choose_block_k(hw)
-        tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
+        tiles = ef.kernel_tile_map(lines, t, h, w, ds)
         q = torch.randn(b, lq, heads, 64, generator=g, device=dev).to(bf)
         k = torch.randn(b, t * hw + nreg, heads, 64, generator=g, device=dev).to(bf)
         v = torch.randn(b, t * hw + nreg, heads, 64, generator=g, device=dev).to(bf)
@@ -322,14 +358,12 @@ def epipolar_checks(dev, g) -> dict:
         run = lambda: ef.epipolar_flash_attention(q, k, v, lines, block_k=bk, tile_any=tiles, **kw)  # noqa: E731
         twin = lambda: ef.epipolar_attention_plain(q, k, v, lines, **kw)  # noqa: E731
         # the bound counts the pairs whose mask bit is set; the pairs of the
-        # subtiles the skip map leaves on are the work K6 does after skipping
-        needed = ef.mask_pairs(lines, heads=heads, **kw)
-        after_skip = ef.visible_pairs(tiles, heads=heads, t=t, hw=hw, num_registers=nreg, block_k=bk)
-        return dict(run=run, twin=twin, q=q, k=k, v=v, lines=lines, tiles=tiles, kw=kw,
-                    skip=1 - tiles.float().mean().item(),
-                    density=needed / (b * lq * heads * (t * hw + nreg)), pairs=needed, pairs_after_skip=after_skip,
-                    after_skip_ms=4 * 64 * after_skip / PEAK_BF16 * 1e3,
-                    **_bound(_nbytes(q, k, v, lines, tiles, q), 4 * 64 * needed))
+        # tiles the skip map leaves on are the work K6 does after skipping
+        counts = _skip_counts(lines, tiles, heads, t, h, w, ds, nreg)
+        return dict(run=run, twin=twin, q=q, k=k, v=v, lines=lines, tiles=tiles, kw=kw, bk=bk, **counts,
+                    density=counts["pairs"] / (b * lq * heads * (t * hw + nreg)),
+                    after_skip_ms=4 * 64 * counts["pairs_after_skip"] / PEAK_BF16 * 1e3,
+                    **_bound(_nbytes(q, k, v, lines, tiles, q), 4 * 64 * counts["pairs"]))
 
     F = bench_F(dev, b=2)
     K = bench_camera(1, dev)
@@ -351,13 +385,25 @@ def epipolar_checks(dev, g) -> dict:
     errs, site_ms = [], {}
     for name, c in cases.items():
         errs.append(_compare(f"epipolar {name} skip={c['skip']:.3f}", c["run"](), c["twin"]()))
-        site_ms[name] = dict(ms=_time_ms(c["run"]), bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-                             skip=c["skip"], mask_density=c["density"], pairs=c["pairs"],
-                             pairs_after_skip=c["pairs_after_skip"], after_skip_ops_ms=c["after_skip_ms"])
-        print(f"  time epipolar {name}: kernel {site_ms[name]['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}; mask bits set {c['density']:.4f}), subtiles skipped {c['skip']:.3f}, "
-              f"pairs after skipping {c['pairs_after_skip'] / c['pairs']:.2f}x the set bits "
-              f"({c['after_skip_ms']:.4f} ms at the bf16 peak)", flush=True)
+        kern = _time_kernel(c["run"])
+        mask = _epipolar_mask(c["lines"], *(c["kw"][n] for n in ("t", "h", "w", "downsample", "num_registers")))
+        qh, kh, vh = c["q"].transpose(1, 2), c["k"].transpose(1, 2), c["v"].transpose(1, 2)
+        sdpa = _time_kernel(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+                            reps=10)["ms"]
+        if name == "ds8 B=1 (1,16384,5,64)" and int(mask.sum()) * c["q"].shape[2] != c["pairs"]:
+            _fail("epipolar: the chunked count of set mask bits disagrees with the materialised mask")
+        del mask
+        torch.cuda.empty_cache()
+        site_ms[name] = dict(ms=kern["ms"], host_ms=kern["host_ms"], device_ms=kern["device_ms"], sdpa_ms=sdpa,
+                             bound_ms=c["bound_ms"], bound_by=c["bound_by"], skip=c["skip"],
+                             mask_density=c["density"], pairs=c["pairs"], pairs_after_skip=c["pairs_after_skip"],
+                             after_skip_x=c["after_skip_x"], jax_map_after_skip_x=c["jax_map_after_skip_x"],
+                             after_skip_ops_ms=c["after_skip_ms"])
+        print(f"  time epipolar {name}: kernel {kern['ms']:.4f} ms over 50 launches (host {kern['host_ms']:.4f}, "
+              f"profiler {kern['device_ms']}), SDPA (bool mask) {sdpa:.4f} ms, bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}; mask bits set {c['density']:.4f}), tiles skipped {c['skip']:.3f}, pairs after "
+              f"skipping {c['after_skip_x']:.2f}x the set bits (the JAX-tiling map {c['jax_map_after_skip_x']:.2f}x; "
+              f"{c['after_skip_ms']:.4f} ms at the bf16 peak)", flush=True)
     main = cases["ds8 B=1 (1,16384,5,64)"]
     plain = _time_ms(main["twin"], reps=3)
     # the training forward: K6 with its logsumexp, against the twin's
@@ -367,26 +413,30 @@ def epipolar_checks(dev, g) -> dict:
     out_l, lse = with_lse()
     out_t, lse_t = ef.epipolar_attention_plain(main["q"], main["k"], main["v"], main["lines"], return_lse=True,
                                                **main["kw"])
-    errs += [_compare("epipolar with lse ds8 B=1 out", out_l, out_t), _compare("epipolar lse", lse, lse_t)]
-    ms_with_lse = _time_ms(with_lse)
-    # the library call: scaled dot-product attention with the materialised
-    # bool mask, registers first-class keys (padding dropped)
-    q, k, v = main["q"], main["k"], main["v"]
-    mask = torch.cat([ef.materialize_mask(main["lines"], 16, 32, 32, 8),
-                      torch.ones(1, q.shape[1], 4, dtype=torch.bool, device=dev)], dim=-1)[:, None]
-    if int(mask.sum()) * q.shape[2] != main["pairs"]:
-        _fail("epipolar: the chunked count of set mask bits disagrees with the materialised mask")
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    library = _time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3)
-    del mask
-    torch.cuda.empty_cache()
-    print(f"  time epipolar_flash ds8 B=1: kernel {site_ms['ds8 B=1 (1,16384,5,64)']['ms']:.4f} ms, chunked twin "
-          f"{plain:.4f} ms, library {library:.4f} ms", flush=True)
+    errs += [_compare("epipolar with lse ds8 B=1 out", out_l, out_t), _compare_lse("epipolar lse", lse, lse_t)]
+    ms_with_lse = _time_kernel(with_lse)["ms"]
+    # fully masked rows: query frames 0 and 1 see no frame (F = 0) and there
+    # are no registers, so their rows give 0 and lse +1e30
+    F_dead = F[:1].clone()
+    F_dead[:, :2] = 0
+    dead = case(F_dead, 16, 16, 16, 16, 10, 0)
+    dgeom = dict(dead["kw"], scale=0.125, block_q=ef.BLOCK_Q, block_k=dead["bk"])
+    out_d, lse_d = ef._launch_fwd(dead["q"], dead["k"], dead["v"], dead["lines"], dead["tiles"], dgeom,
+                                  want_lse=True)
+    ref_d, rlse_d = ef.epipolar_attention_plain(dead["q"], dead["k"], dead["v"], dead["lines"], return_lse=True,
+                                                **dead["kw"])
+    errs += [_compare("epipolar fully masked rows ds16 (1,4096,10,64) out", out_d, ref_d),
+             _compare_lse("epipolar fully masked rows lse", lse_d, rlse_d)]
+    if out_d[:, :512].abs().max().item() != 0 or not bool((lse_d[..., :512] >= 1e30).all()):
+        _fail("epipolar: a fully masked row's output is not 0 or its lse not +1e30")
+    s = site_ms["ds8 B=1 (1,16384,5,64)"]
+    print(f"  time epipolar_flash ds8 B=1: kernel {s['ms']:.4f} ms (with the lse {ms_with_lse:.4f}), chunked twin "
+          f"{plain:.4f} ms, library (SDPA, bool mask) {s['sdpa_ms']:.4f} ms", flush=True)
     with open(os.path.join(OUT_DIR, "epipolar_sites.json"), "w") as f:
         json.dump(site_ms, f, indent=1)
-    s = site_ms["ds8 B=1 (1,16384,5,64)"]
-    return dict(max_abs_err=max(errs), ms=s["ms"], ms_with_lse=ms_with_lse, plain_ms=plain, twin_ms=plain,
-                bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=site_ms)
+    return dict(max_abs_err=max(errs), ms=s["ms"], host_ms=s["host_ms"], device_ms=s["device_ms"],
+                ms_with_lse=ms_with_lse, plain_ms=plain, twin_ms=plain, bound_ms=s["bound_ms"],
+                bound_by=s["bound_by"], library_ms=s["sdpa_ms"], sites=site_ms)
 
 
 @torch.no_grad()
@@ -695,17 +745,17 @@ def backward_checks(dev) -> dict:
         lines = ef.epipolar_lines(F, h, w, ds)
         b, lq = lines.shape[:2]
         bk = ef.choose_block_k(h * w)
-        tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
+        tiles = ef.kernel_tile_map(lines, t, h, w, ds)
         q, dout = randn(b, lq, heads, 64), randn(b, lq, heads, 64)
         k, v = randn(b, t * h * w + nreg, heads, 64), randn(b, t * h * w + nreg, heads, 64)
         kw = dict(t=t, h=h, w=w, downsample=ds, num_registers=nreg)
         geom = dict(kw, scale=0.125, block_q=ef.BLOCK_Q, block_k=bk)
         out, lse = ef._launch_fwd(q, k, v, lines, tiles, geom, want_lse=True)
-        pairs = ef.mask_pairs(lines, heads=heads, **kw)
+        counts = _skip_counts(lines, tiles, heads, t, h, w, ds, nreg)
         return dict(run=lambda: ef.epipolar_flash_bwd(q, k, v, lines, tiles, out, lse, dout, geom),
                     twin=lambda: ef.epipolar_bwd_plain(q, k, v, lines, out, lse, dout, scale=0.125, **kw),
-                    q=q, k=k, v=v, dout=dout, lines=lines, kw=kw,
-                    **_bwd_bound(q, k, v, out, dout, lse, pairs, (lines, tiles)))
+                    q=q, k=k, v=v, dout=dout, lines=lines, kw=kw, **counts,
+                    **_bwd_bound(q, k, v, out, dout, lse, counts["pairs"], (lines, tiles)))
 
     F = bench_F(dev, b=2)
     cam = bench_camera(2, dev)
@@ -721,21 +771,26 @@ def backward_checks(dev) -> dict:
     errs, sites = [], {}
     for name, c in epi_sites.items():
         errs.append(_bwd_compare(f"epipolar_bwd {name}", c["run"](), c["twin"]()))
-        sites[name] = dict(ms=_time_ms(c["run"], reps=5), bound_ms=c["bound_ms"], bound_by=c["bound_by"])
-        print(f"  time epipolar_bwd {name}: kernel {sites[name]['ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})", flush=True)
-    main = epi_sites["ds8 B=1 (1,16384,5,64)"]
-    twin = _time_ms(main["twin"], reps=1)
-    mask = torch.cat([ef.materialize_mask(main["lines"], 16, 32, 32, 8),
-                      torch.ones(1, main["q"].shape[1], 4, dtype=torch.bool, device=dev)], dim=-1)[:, None]
-    library = _sdpa_backward_ms(main["q"], main["k"], main["v"], main["dout"], mask=mask, reps=2)
-    del mask
-    torch.cuda.empty_cache()
+        kern = _time_kernel(c["run"])
+        mask = _epipolar_mask(c["lines"], *(c["kw"][n] for n in ("t", "h", "w", "downsample", "num_registers")))
+        sdpa = _sdpa_backward_ms(c["q"], c["k"], c["v"], c["dout"], mask=mask, reps=5)
+        del mask
+        torch.cuda.empty_cache()
+        sites[name] = dict(ms=kern["ms"], host_ms=kern["host_ms"], device_ms=kern["device_ms"],
+                           sdpa_backward_ms=sdpa, bound_ms=c["bound_ms"], bound_by=c["bound_by"], skip=c["skip"],
+                           pairs=c["pairs"], pairs_after_skip=c["pairs_after_skip"], after_skip_x=c["after_skip_x"],
+                           jax_map_after_skip_x=c["jax_map_after_skip_x"])
+        print(f"  time epipolar_bwd {name}: kernel {kern['ms']:.4f} ms over 50 launches (host {kern['host_ms']:.4f}, "
+              f"profiler {kern['device_ms']}), SDPA backward (bool mask) {sdpa:.4f} ms, bound {c['bound_ms']:.4f} "
+              f"ms ({c['bound_by']}), pairs after skipping {c['after_skip_x']:.2f}x the set bits (the JAX-tiling "
+              f"map {c['jax_map_after_skip_x']:.2f}x)", flush=True)
+    twin = _time_ms(epi_sites["ds8 B=1 (1,16384,5,64)"]["twin"], reps=1)
     s = sites["ds8 B=1 (1,16384,5,64)"]
     print(f"  time epipolar_bwd ds8 B=1: kernel {s['ms']:.4f} ms, chunked twin {twin:.4f} ms, library (SDPA "
-          f"backward, bool mask) {library:.4f} ms", flush=True)
-    res["epipolar_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], plain_ms=twin, twin_ms=twin,
-                               bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=library, sites=sites)
+          f"backward, bool mask) {s['sdpa_backward_ms']:.4f} ms", flush=True)
+    res["epipolar_bwd"] = dict(max_abs_err=max(errs), ms=s["ms"], host_ms=s["host_ms"], device_ms=s["device_ms"],
+                               plain_ms=twin, twin_ms=twin, bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+                               library_ms=s["sdpa_backward_ms"], sites=sites)
     with open(os.path.join(OUT_DIR, "backward_sites.json"), "w") as f:
         json.dump({k: v["sites"] for k, v in res.items()}, f, indent=1)
     return res
@@ -813,7 +868,7 @@ def route_kernel_checks(dev) -> dict:
         lines1 = ef.epipolar_lines(F1, h, w, ds)
         lines = lines1.expand(2, *lines1.shape[1:]).contiguous()
         bk = ef.choose_block_k(hw)
-        tiles = ef.epipolar_tile_map(lines, t, h, w, ds, ef.BLOCK_Q, bk)
+        tiles = ef.kernel_tile_map(lines, t, h, w, ds)
         pen = ef.materialize_penalties(lines1, t, h, w, ds)
         lq = lines.shape[1]
         q = randn(2, lq, heads, 64).to(bf)
@@ -824,7 +879,7 @@ def route_kernel_checks(dev) -> dict:
         twin = lambda: ef.epipolar_attention_precomp_plain(q, k, v, pen, t=t, h=h, w=w)  # noqa: E731
         errs.append(_compare(f"epipolar_precomp {label}", run(), twin()))
         pairs = ef.mask_pairs(lines, heads=heads, **kw)
-        pen_bytes = ef.visible_penalty_bytes(tiles, t=t, hw=hw, pb=1, block_k=bk)
+        pen_bytes = ef.visible_penalty_bytes(tiles, t=t, hw=hw, pb=1, block_q=ef.KERNEL_BQ, block_k=ef.KERNEL_BK)
         site = dict(ms=_time_ms(run), in_kernel_k6_ms=_time_ms(lambda: ef.epipolar_flash_attention(
             q, k, v, lines, block_k=bk, tile_any=tiles, **kw)), penalty_bytes_read=pen_bytes,
             penalty_bytes=_nbytes(pen), **_bound(_nbytes(q, k, v, q, tiles) + pen_bytes, 4 * 64 * pairs))
@@ -923,9 +978,23 @@ def camcontext_unet_check(model, dev) -> dict:
         print(f"  camcontext unet step batch 1: {step_ms:.3f} ms", flush=True)
         by_kernel, total = _profile_by_kernel(step, "camcontext_step_profile.txt",
                                               f"camcontext UNet step batch 1 (event-timed step {step_ms:.3f} ms)")
-        k6_ms, k6_calls = by_kernel.get(next((k for k in by_kernel if "epipolar_fwd_kernel" in k), ""), (0.0, 0))
-        print(f"  profile: K6 epipolar_fwd_kernel {k6_ms:.3f} ms over {k6_calls} calls", flush=True)
+        k6_ms, k6_calls = _kernels_by_policy(by_kernel)["K6"]
+        print(f"  profile: K6 (flash_fwd_kernel<LineMask>) {k6_ms:.3f} ms over {k6_calls} calls", flush=True)
     return dict(step_ms=step_ms, profiled_ms=total, k6_profiled_ms=k6_ms, k6_profiled_calls=k6_calls)
+
+
+def _kernels_by_policy(by_kernel: dict) -> dict:
+    """Device time and calls of the Hopper core's kernels in a profile, by
+    kernel: K2 and K6 (the forward body under BoolMask and LineMask), K5
+    and K7 (the dq and dk/dv sweeps under each; the shared pre-pass kernel
+    is counted apart)."""
+    out = {}
+    for name, body, policy in (("K2", "flash_fwd_kernel", "BoolMask"), ("K6", "flash_fwd_kernel", "LineMask"),
+                               ("K5", "flash_bwd_d", "BoolMask"), ("K7", "flash_bwd_d", "LineMask"),
+                               ("pre-pass", "flash_bwd_prepass", "")):
+        hits = [v for k, v in by_kernel.items() if body in k and policy in k]
+        out[name] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+    return out
 
 
 def _profile_by_kernel(fn, out_name: str, title: str, top_n: int = 12):
@@ -1273,6 +1342,9 @@ def _train_split(model, state, cfg, dev) -> dict:
     by_kernel, prof_total = _profile_by_kernel(lambda: step(state, batch, 8), "train_step_profile.txt",
                                                "CamContextI2V training micro-step batch 2", top_n=16)
     out["profiled_ms"] = prof_total
+    out["hopper_kernels_ms"] = _kernels_by_policy(by_kernel)
+    print("  profile: the Hopper core's kernels in the micro-step (ms, calls): "
+          + ", ".join(f"{k} {ms:.3f}, {n}" for k, (ms, n) in out["hopper_kernels_ms"].items()), flush=True)
     out["profile_top"] = sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()), key=lambda x: -x[1])[:25]
     return out
 
@@ -1407,7 +1479,7 @@ def main() -> None:
 
     secs = _build.build_all()
     print(f"[2 build] {len(_build.KERNELS)} kernel libraries built in {secs:.1f} s", flush=True)
-    for name in ("flash_attention", "flash_bwd"):
+    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd"):
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()[:160]}", flush=True)

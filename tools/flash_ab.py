@@ -57,8 +57,8 @@ def compare(name, got, ref):
     live = ref.abs() < 1e29  # a fully masked row's lse (+1e30) compared exactly
     if not torch.equal(got[~live], ref[~live]):
         FAILS.append(name)
-    err = (got[live] - ref[live]).abs().max().item()
-    tol = 4 * 2.0 ** -8 * ref[live].abs().max().item()
+    err = (got[live] - ref[live]).abs().max().item() if live.any() else 0.0
+    tol = 4 * 2.0 ** -8 * ref[live].abs().max().item() if live.any() else 0.0
     ok = err <= tol and bool(torch.isfinite(got[live]).all())
     print(f"  {'ok ' if ok else 'BAD'} {name}: err {err:.3e} tol {tol:.3e}", flush=True)
     if not ok:
@@ -156,17 +156,17 @@ def timing():
     print(f"  SDPA backward (32,1024,5,64): {ms:.4f} ms", flush=True)
 
 
-def build(src, flags):
-    """Build flash_attention and flash_bwd (from `src` with `flags`, into a
+def build(src, flags, names=("flash_attention", "flash_bwd")):
+    """Build the kernel libraries `names` (from `src` with `flags`, into a
     directory beside the package's build) and print nvcc's register report."""
     if src is None and not flags:
-        _build.build_all(("flash_attention", "flash_bwd"))
-        logs = {name: (_build.BUILD_DIR / f"{name}.log").read_text() for name in ("flash_attention", "flash_bwd")}
+        _build.build_all(names)
+        logs = {name: (_build.BUILD_DIR / f"{name}.log").read_text() for name in names}
     else:
         out_dir = _build.BUILD_DIR / "variant"
         out_dir.mkdir(parents=True, exist_ok=True)
         logs = {}
-        for name in ("flash_attention", "flash_bwd"):
+        for name in names:
             lib = out_dir / f"lib{name}.so"
             cmd = _build._command(name, lib)
             if src is not None:
