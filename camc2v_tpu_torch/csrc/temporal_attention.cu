@@ -1,233 +1,192 @@
 // K3: fused short-sequence (temporal) multi-head self-attention.
 //
 // Replaces the Pallas kernel camc2v_tpu/ops/temporal_attention.py::_kernel
-// (entry fused_temporal_mha). Per T-token sequence, in one pass:
-//   [optional f32 LayerNorm]  xb = bf16(LN(x)) or bf16(x)
+// (entry fused_temporal_mha). For each of N sequences of T tokens:
+//   [optional f32 LayerNorm]  xb = bf16(LN(x)) or x
 //   qkv = bf16(xb @ [Wq|Wk|Wv])                  (f32 accumulation)
-//   o_h = bf16(softmax(q_h k_h^T * scale) v_h)   (f32 scores and softmax)
-//   out = o @ Wo + bo [+ x, f32]                  -> x.dtype
-// The projections run inside the kernel; only x, the weights and the output
-// touch HBM.
+//   p_h = bf16(softmax(q_h k_h^T * scale))       (f32 scores and softmax)
+//   o_h = bf16(p_h v_h)
+//   out = bf16(o @ Wo^T + bo [+ f32(x)])
 //
-// On the H100 the projections are ~95% of the FLOPs (8 C^2 per token against
-// 4 T D per head), so the op is a chain of tensor-core GEMMs fed with weights
-// from L2 (every block reads the same weights). The TPU kernel packed 128/T
-// sequences into one 128-row tile behind a block-diagonal penalty; here a
-// block of 16 warps owns R = NB * TP rows (TP = T rounded up to 16, padded
-// keys masked; R * C_out <= 20480, i.e. 4 sequences at C = 320, 1 at 1280)
-// and each sequence's scores are one (or four) 16x16 WMMA tiles, so no
-// cross-sequence work is wasted. Per head, with weight_stream.cuh:
-//   QKV   (R, 3D) = xb @ W_h^T in 64-column groups, C in slices of 64
-//   attn  one warp per sequence for the scores and softmax, P V spread over
-//         the warps, o_h (R, D) in shared memory
-//   out   acc (R, C_out) += o_h @ Wo[:, h]^T in 32-wide chunks; the f32
-//         accumulator stays in registers across all heads
-// WMMA 16x16x16 bf16 with f32 accumulators. wgmma/TMA is later work.
-#include "weight_stream.cuh"
+// Bound on the H100 by operations: 8 rows C^2 for the four projections plus
+// 4 rows T C for the scores and P V (rows = N T), 0.0278 ms at the ds1 site
+// (2048 x 16 tokens, C = 320). The projections are ~95% of it, so K3 is
+// GEMMs on the core of gemm_hopper.cuh, one ctypes entry, up to three
+// launches on the caller's stream:
+//   1. with ln_s: ln::ln_rows (layernorm.cuh), bf16 LN(x) to scratch;
+//   2. QKV and attention in one GEMM: a block's tile is (128 rows, head h);
+//      its N tile is head h's [q_h | k_h | v_h], 192 weight rows in three TMA
+//      boxes, so each consumer warpgroup holds a 64 x 192 accumulator. The
+//      QkvAttention epilogue writes q, k and v as bf16 swizzled atoms into
+//      shared memory; each warpgroup's 64 rows are 64 / T whole sequences
+//      (T divides 64: the TPU kernel's block-diagonal packing, now on a
+//      wgmma tile), so it computes its 64 x 64 scores with wgmma, masks keys
+//      of other sequences, takes the softmax in registers (quad shuffles),
+//      runs P V as an rs wgmma with P in registers, as the flash core does,
+//      and writes o_h bf16 into the (rows, inner) scratch; qkv never leaves
+//      the chip. Rows past N T are zeros (TMA fill), are their own sequences
+//      and are not stored;
+//   3. the out-projection on the same core with the BiasResidual epilogue
+//      (K split where its tiles fill less than half the card).
+// Every model site has T = 16 and D = 64; the kernels take T | 64 (T <= 32)
+// and D = 64, and the wrapper raises on anything else.
+#include "gemm_hopper.cuh"
+#include "layernorm.cuh"
 
-using namespace nvcuda;
+#ifndef QKV_STAGES
+#define QKV_STAGES 4
+#endif
 
 namespace {
 
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int G1F = 2;  // QKV fragments per warp (R <= 128)
+using namespace hgemm;
 
-struct Layout {
-  int R, TP, NB, ldx, ldq, ldo, lds, ldp;
-  size_t xb, ring, wo, qkv, oh, s, p, stage, total;
+constexpr int D = 64;  // head dim
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct QkvAttention {
+  static constexpr int BN = 3 * D;
+  static constexpr int B_BYTES = BN * 128;
+  static constexpr int STAGES = QKV_STAGES;
+  static constexpr int ATOM = 64 * 128;   // a 64 x 64 bf16 tile
+  static constexpr int SCRATCH = 4 * ATOM;  // q, k, v and o of the warpgroup's 64 rows
+  bf16* o;  // (rows, inner)
+  int rows, inner, log2t;
+  float scale;
+
+  __device__ void load_b(unsigned char* dst, const Maps& m, uint64_t* bar, int h, int k0) const {
+#pragma unroll
+    for (int p = 0; p < 3; ++p) tma_load_2d(dst + p * D * 128, &m.b[p], bar, k0, h * D);
+  }
+
+  __device__ void apply(float (&acc)[BN / 2], unsigned char* scratch, long long row0, int h, int, int wg) const {
+    const int t = threadIdx.x % 128, r0 = acc_row(t), c0 = acc_col(t);
+    unsigned char* Qs = scratch;
+    unsigned char* Ks = scratch + ATOM;
+    unsigned char* Vs = scratch + 2 * ATOM;
+    unsigned char* Os = scratch + 3 * ATOM;
+    named_barrier(1 + wg, 128);  // the previous tile's products and stores are done with the scratch
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int c = 8 * i + c0;
+      unsigned char* dst = scratch + (c / D) * ATOM;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(dst + tile_offset(64, r0 + 8 * hh, c % D)) =
+            pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+
+    // S = q k^T over the warpgroup's 64 rows (64 x 64)
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<0>(sc, desc_k(Qs, 64, 0, kk), desc_k(Ks, 64, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // keys of other sequences masked; f32 softmax per row, P = bf16(e * (1 / sum))
+    const int seq0 = r0 >> log2t, seq1 = (r0 + 8) >> log2t;
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = (8 * i + c0 + (j & 1)) >> log2t;
+        const bool vis = key == (j < 2 ? seq0 : seq1);
+        const float v = vis ? sc[4 * i + j] * scale : NEG_INF;
+        sc[4 * i + j] = v;
+        if (j < 2) mx0 = fmaxf(mx0, v);
+        else mx1 = fmaxf(mx1, v);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[4 * i + 0] = ex2((sc[4 * i + 0] - mx0) * LOG2E);
+      sc[4 * i + 1] = ex2((sc[4 * i + 1] - mx0) * LOG2E);
+      sc[4 * i + 2] = ex2((sc[4 * i + 2] - mx1) * LOG2E);
+      sc[4 * i + 3] = ex2((sc[4 * i + 3] - mx1) * LOG2E);
+      l0 += sc[4 * i + 0] + sc[4 * i + 1];
+      l1 += sc[4 * i + 2] + sc[4 * i + 3];
+    }
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[4 * i + 0] *= inv0;
+      sc[4 * i + 1] *= inv0;
+      sc[4 * i + 2] *= inv1;
+      sc[4 * i + 3] *= inv1;
+    }
+
+    // o = P V, P as the register A operand, V MN-major
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_fragment(sc, kk, pa[kk]);
+    float ov[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(ov, pa[kk], desc_mn(Vs, 64, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(ov);
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(Os + tile_offset(64, r0 + 8 * hh, 8 * i + c0)) =
+            pack_bf16(ov[4 * i + 2 * hh], ov[4 * i + 2 * hh + 1]);
+    }
+    named_barrier(1 + wg, 128);
+    store_tile<D>(Os, o, row0, h * D, rows, inner, inner, t);
+  }
 };
-
-__host__ __device__ inline Layout make_layout(int R, int TP, int c_in, int c_out, int d) {
-  Layout L;
-  L.R = R;
-  L.TP = TP;
-  L.NB = R / TP;
-  L.ldx = c_in + 8;
-  L.ldq = 3 * d + 8;
-  L.ldo = d + 8;
-  L.lds = TP + 4;
-  L.ldp = TP + 8;
-  L.xb = 0;
-  L.ring = L.xb + align128((size_t)R * L.ldx * 2);
-  L.wo = L.ring + align128(ws::ring_bytes());
-  L.qkv = L.wo + align128(ws::chunk_bytes(c_out));
-  L.oh = L.qkv + align128((size_t)R * L.ldq * 2);
-  L.s = L.oh + align128((size_t)R * L.ldo * 2);
-  L.p = L.s + align128((size_t)R * L.lds * 4);
-  L.stage = L.p + align128((size_t)R * L.ldp * 2);
-  L.total = L.stage + align128((size_t)WARPS * 256 * 4);
-  return L;
-}
-
-// a warp's 16x16 f32 fragment -> bf16 at dst (row stride ld), via its staging tile
-__device__ __forceinline__ void store_bf16(const ws::Acc& c, float* st, bf16* dst, int ld, int lane) {
-  wmma::store_matrix_sync(st, c, 16, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 256; e += 32) dst[(e / 16) * ld + e % 16] = __float2bfloat16(st[e]);
-  __syncwarp();
-}
-
-template <int MAXF>
-__global__ void __launch_bounds__(THREADS, 1)
-temporal_mha_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wq, const bf16* __restrict__ wk,
-                    const bf16* __restrict__ wv, const bf16* __restrict__ wo,
-                    const float* __restrict__ bo, const float* __restrict__ ln_s,
-                    const float* __restrict__ ln_b, bf16* __restrict__ out, int N, int T, int c_in,
-                    int heads, int D, int c_out, float scale, float eps, int residual, Layout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int inner = heads * D;
-  const int n0 = blockIdx.x * L.NB;
-  bf16* xb = reinterpret_cast<bf16*>(smem + L.xb);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  bf16* wos = reinterpret_cast<bf16*>(smem + L.wo);
-  bf16* qkv = reinterpret_cast<bf16*>(smem + L.qkv);
-  bf16* oh = reinterpret_cast<bf16*>(smem + L.oh);
-  float* sbuf = reinterpret_cast<float*>(smem + L.s);
-  bf16* pbuf = reinterpret_cast<bf16*>(smem + L.p);
-  float* stage = reinterpret_cast<float*>(smem + L.stage);
-  float* st = stage + warp * 256;
-
-  // block row r holds token t = r % TP of sequence n0 + r / TP (zeros past N or T)
-  for (int r = warp; r < L.R; r += WARPS) {
-    const int seq = n0 + r / L.TP, t = r % L.TP;
-    bf16* dst = xb + r * L.ldx;
-    if (seq < N && t < T) {
-      const bf16* src = x + ((long long)seq * T + t) * c_in;
-      if (ln_s != nullptr) {
-        warp_layernorm_row(src, dst, c_in, ln_s, ln_b, eps, lane);
-      } else {
-        for (int i = lane; i < c_in; i += 32) dst[i] = src[i];
-      }
-    } else {
-      for (int i = lane; i < c_in; i += 32) dst[i] = __float2bfloat16(0.f);
-    }
-  }
-
-  const int m_tiles = L.R / 16, n_tiles = c_out / 16, tt = L.TP / 16;
-  ws::Acc acc[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int h = 0; h < heads; ++h) {
-    for (int half = 0; half < D / 32; ++half) {
-      __syncthreads();  // the previous out-projection is done with wos and oh; xb is ready
-      ws::load_cols32<WARPS>(wo, inner, c_out, h * D + half * 32, wos);
-      if (half == 0) {
-        // q|k|v of head h, 64 columns at a time (D % 64 == 0: a group lies in one matrix)
-        for (int g = 0; g < 3 * D / 64; ++g) {
-          const int part = g * 64 / D, row0 = h * D + g * 64 % D;
-          const bf16* w = part == 0 ? wq : part == 1 ? wk : wv;
-          ws::Acc q[G1F];
-          ws::gemm_rows64<WARPS>(xb, L.ldx, m_tiles, c_in,
-                                 [&](int r) { return w + (long long)(row0 + r) * c_in; }, ring, q);
-#pragma unroll
-          for (int f = 0; f < G1F; ++f) {
-            const int t = warp + f * WARPS;
-            if (t < m_tiles * 4) {
-              store_bf16(q[f], st, qkv + (t / 4) * 16 * L.ldq + g * 64 + (t % 4) * 16, L.ldq, lane);
-            }
-          }
-        }
-        __syncthreads();
-        // scores and softmax, one warp per sequence
-        for (int s = warp; s < L.NB; s += WARPS) {
-          const bf16* qs = qkv + s * L.TP * L.ldq;
-          float* S = sbuf + s * L.TP * L.lds;
-          for (int ti = 0; ti < tt; ++ti)
-            for (int tj = 0; tj < tt; ++tj) {
-              ws::Acc c;
-              wmma::fill_fragment(c, 0.f);
-              for (int kk = 0; kk < D / 16; ++kk) {
-                ws::FragA a;
-                ws::FragB b;
-                wmma::load_matrix_sync(a, qs + ti * 16 * L.ldq + kk * 16, L.ldq);
-                wmma::load_matrix_sync(b, qs + tj * 16 * L.ldq + D + kk * 16, L.ldq);
-                wmma::mma_sync(c, a, b, c);
-              }
-              wmma::store_matrix_sync(S + ti * 16 * L.lds + tj * 16, c, L.lds, wmma::mem_row_major);
-            }
-          __syncwarp();
-          if (lane < L.TP) {
-            float* srow = S + lane * L.lds;
-            float m = -1e30f;
-            for (int j = 0; j < T; ++j) m = fmaxf(m, srow[j] * scale);
-            float l = 0.f;
-            for (int j = 0; j < T; ++j) {
-              const float e = expf(srow[j] * scale - m);
-              srow[j] = e;
-              l += e;
-            }
-            bf16* prow = pbuf + (s * L.TP + lane) * L.ldp;
-            for (int j = 0; j < L.TP; ++j) prow[j] = __float2bfloat16(j < T ? srow[j] / l : 0.f);
-          }
-        }
-        __syncthreads();
-        // o_h = P V, (sequence, row tile, d tile) spread over the warps
-        for (int task = warp; task < L.NB * tt * (D / 16); task += WARPS) {
-          const int s = task / (tt * (D / 16)), ti = task / (D / 16) % tt, dt = task % (D / 16);
-          const bf16* vs = qkv + s * L.TP * L.ldq + 2 * D + dt * 16;
-          const bf16* ps = pbuf + (s * L.TP + ti * 16) * L.ldp;
-          ws::Acc c;
-          wmma::fill_fragment(c, 0.f);
-          for (int kk = 0; kk < tt; ++kk) {
-            ws::FragA a;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-            wmma::load_matrix_sync(a, ps + kk * 16, L.ldp);
-            wmma::load_matrix_sync(b, vs + kk * 16 * L.ldq, L.ldq);
-            wmma::mma_sync(c, a, b, c);
-          }
-          store_bf16(c, st, oh + (s * L.TP + ti * 16) * L.ldo + dt * 16, L.ldo, lane);
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // o_h and the Wo chunk are ready
-      ws::mma_k32<WARPS>(oh + half * 32, L.ldo, m_tiles, n_tiles, wos, acc);
-    }
-  }
-
-  __syncthreads();
-  ws::store_rows<WARPS>(acc, stage, m_tiles, n_tiles, [&](int r) {
-    const int seq = n0 + r / L.TP, t = r % L.TP;
-    return seq < N && t < T ? (long long)seq * T + t : -1LL;
-  }, bo, residual ? x : nullptr, c_in, out, c_out);
-}
 
 }  // namespace
 
-// x (N, T, C_in) bf16; wq/wk/wv (heads*D, C_in) and wo (C_out, heads*D) bf16 in
-// the torch Linear layout; bo (C_out) f32; ln_s/ln_b (C_in) f32 or null;
-// out (N, T, C_out) bf16. T <= 32; C_in and D multiples of 64, C_out of 16;
-// 16-byte aligned weights.
-extern "C" int temporal_mha_fwd(const void* x, const void* wq, const void* wk, const void* wv,
-                                const void* wo, const void* bo,
-                                const void* ln_s, const void* ln_b, void* out, int N, int T, int c_in,
-                                int heads, int D, int c_out, float scale, float eps, int residual,
-                                void* stream) {
-  if (T < 1 || T > 32 || c_in % ws::KS || c_out % 16 || D % 64) return (int)cudaErrorInvalidValue;
-  const int TP = T <= 16 ? 16 : 32;
-  // most rows whose output tiles fit 5 fragments per warp; at least one sequence (10 fragments)
-  int R = TP;
-  while (R < 128 && (2 * R / 16) * (c_out / 16) <= 5 * WARPS) R *= 2;
-  const int tiles = (R / 16) * (c_out / 16);
-  if (tiles > 10 * WARPS) return (int)cudaErrorInvalidValue;
-  const Layout L = make_layout(R, TP, c_in, c_out, D);
-  if (L.total > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + L.NB - 1) / L.NB;
-  if (tiles <= 5 * WARPS) {
-    cudaFuncSetAttribute(temporal_mha_kernel<5>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    RETURN_IF_ERR();
-    temporal_mha_kernel<5><<<blocks, THREADS, L.total, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv, (const bf16*)wo, (const float*)bo,
-        (const float*)ln_s, (const float*)ln_b, (bf16*)out, N, T, c_in, heads, D, c_out, scale, eps, residual, L);
-  } else {
-    cudaFuncSetAttribute(temporal_mha_kernel<10>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    RETURN_IF_ERR();
-    temporal_mha_kernel<10><<<blocks, THREADS, L.total, (cudaStream_t)stream>>>(
-        (const bf16*)x, (const bf16*)wq, (const bf16*)wk, (const bf16*)wv, (const bf16*)wo, (const float*)bo,
-        (const float*)ln_s, (const float*)ln_b, (bf16*)out, N, T, c_in, heads, D, c_out, scale, eps, residual, L);
+// x (N, T, C_in) bf16; wq/wk/wv (heads*D, C_in) and wo (C_out, heads*D) bf16
+// in the torch Linear layout; bo (C_out) f32; ln_s/ln_b (C_in) f32 or null;
+// out (N, T, C_out) bf16; scratch xn (N T, C_in) (used with ln_s),
+// o (N T, heads*D) bf16 and with splits > 1 ws (splits, N T, C_out) f32;
+// splits: the out-projection's split of K (1, 2, 4 or 8). Every pointer
+// 16-byte aligned; T | 64 and T <= 32, D == 64, C_in % 64 == 0,
+// C_out % 8 == 0; residual needs C_out == C_in.
+extern "C" int temporal_mha_fwd(const void* x, const void* wq, const void* wk, const void* wv, const void* wo,
+                                const void* bo, const void* ln_s, const void* ln_b, void* out, void* xn, void* o,
+                                void* ws, int N, int T, int c_in, int heads, int d, int c_out, int splits, float scale,
+                                float eps, int residual, void* stream) {
+  if (T < 1 || T > 32 || 64 % T || d != D || c_in % BK || c_out % 8 || N <= 0 || heads <= 0 ||
+      (residual && c_out != c_in))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = N * T, inner = heads * D;
+  const void* a = x;
+  if (ln_s != nullptr) {
+    const int err = ln::launch<bf16>((const bf16*)x, (const float*)ln_s, (const float*)ln_b, (bf16*)xn, rows, c_in,
+                                     eps, st);
+    if (err) return err;
+    a = xn;
   }
-  RETURN_IF_ERR();
-  return 0;
+  Maps m{};
+  if (!bf16_map_2d(&m.a, a, rows, c_in, BM) || !bf16_map_2d(&m.b[0], wq, inner, c_in, D) ||
+      !bf16_map_2d(&m.b[1], wk, inner, c_in, D) || !bf16_map_2d(&m.b[2], wv, inner, c_in, D))
+    return (int)cudaErrorInvalidValue;
+  int log2t = 0;
+  while ((1 << log2t) < T) ++log2t;
+  const int err = launch(m, QkvAttention{(bf16*)o, rows, inner, log2t, scale}, rows, c_in, heads, st);
+  if (err) return err;
+  return bias_residual(o, wo, (const float*)bo, residual ? (const bf16*)x : nullptr, (bf16*)out, rows, inner, c_out,
+                       splits, (float*)ws, st);
 }

@@ -7,10 +7,10 @@ input). The MotionCtrl and CameraCtrl injections are not ported and raise.
 Token tensors are (N, L, C); SpatialTransformer takes (B*T, H, W, C) maps and
 TemporalTransformer (B, T, H, W, C) videos. One module tree serves both
 paths, as in the JAX package. When `ops.route` picks the kernels (bf16 on
-the card), every unmasked self-attention over at most `ta.MAX_T` tokens runs
-the fused kernel K3 (with the block's LayerNorm and residual when the whole
-attention step fuses), every feed-forward runs K4, and all other attention
-goes through the `dot_product_attention` seam (K2). A shape that K3 or K4
+the card), every unmasked self-attention over T tokens with T | 64, T <= 32
+(`ta.seq_ok`) runs the fused kernel K3 (with the block's LayerNorm and
+residual when the whole attention step fuses), every feed-forward runs K4,
+and all other attention goes through the `dot_product_attention` seam (K2). A shape that K3 or K4
 cannot take raises in its wrapper; none of the model's does (K3: T = 16,
 C in {320, 512, 640, 1280}, head dim 64; K4: C in {320, 512, 640, 1280}).
 No K3 or K4 site stays plain on the card in a bf16 model; in a model built
@@ -35,8 +35,9 @@ from camc2v_tpu_torch.ops.attention import dot_product_attention
 
 def _fused_mha_ok(x, dtype) -> bool:
     """K3 takes this self-attention step (the JAX `_ln_mha_fusable` rule,
-    with the card in place of the TPU backend)."""
-    return ops.route(x, dtype) and x.shape[1] <= ta.MAX_T
+    with the card in place of the TPU backend and K3's sequence rule,
+    `ta.seq_ok`: T divides 64, at most 32, in place of T | 128)."""
+    return ops.route(x, dtype) and ta.seq_ok(x.shape[1])
 
 
 class CrossAttention(nn.Module):

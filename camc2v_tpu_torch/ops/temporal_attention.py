@@ -1,17 +1,24 @@
 """Fused short-sequence (temporal) multi-head self-attention: kernel K3.
 
-The CUDA kernel (`csrc/temporal_attention.cu`) replaces the Pallas kernel
+The CUDA kernels (`csrc/temporal_attention.cu`) replace the Pallas kernel
 `camc2v_tpu/ops/temporal_attention.py::_kernel` (entry `fused_temporal_mha`):
-optional f32 LayerNorm, the merged [Wq|Wk|Wv] projection, per-head
+optional f32 LayerNorm, the [Wq|Wk|Wv] projection, per-head
 softmax(q k^T / sqrt(d)) v over T tokens, the out-projection with bias and an
-optional f32 residual, all in one pass with the projections inside the kernel.
+optional f32 residual.
 
-On the H100 the projections carry ~95% of the FLOPs, so the kernel is a
-tensor-core GEMM chain whose weights stream from L2 through shared memory;
-the TPU's VMEM weight budgets (14/8 MB) and 128-row sequence packing do not
-carry over. The model sends every self-attention over at most 32 tokens here
-(the temporal transformers at every level, and the spatial self-attention at
-the 4x4 level); all of them have T = 16 and head dim 64.
+On the H100 the projections carry ~95% of the operations, so K3 is GEMMs on
+the wgmma/TMA core (`csrc/gemm_hopper.cuh`), one ctypes entry with up to
+three launches: the row LayerNorm to scratch (when fused); one GEMM whose
+tile is (128 rows, head) with head h's [q|k|v] as its 192 columns and whose
+epilogue runs the attention of the tile's whole sequences (block-diagonal
+mask on a 64 x 64 wgmma score tile per warpgroup) and writes o_h to scratch;
+the out-projection GEMM with bias and residual (`ops/_gemm.py`). The tiling
+needs T to divide the 64 rows of a warpgroup, so K3 takes T in {1, 2, 4, 8,
+16, 32} and head dim 64; `nn/attention.py::_fused_mha_ok` sends other T to
+the plain route, as the JAX package sends T that does not divide 128 (its
+`supported`). Every self-attention of the model over at most 32 tokens has
+T = 16 and head dim 64 (the temporal transformers at every level, the
+spatial self-attention at the 4x4 level).
 """
 
 from __future__ import annotations
@@ -24,17 +31,24 @@ import torch
 
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
+from camc2v_tpu_torch.ops._gemm import BLOCK_K, out_splits, sm_count, workspace
+
+# the QKV-and-attention GEMM's tiling (`csrc/temporal_attention.cu`)
+WG_ROWS = 64     # rows of a warpgroup's attention tile: whole sequences
+HEAD_DIM = 64    # the one head dim the kernels take (D)
+QKV_STAGES = 4   # its ring depth (the source's default)
+MAX_T = 32       # the longest sequence K3 takes; the model routes longer self-attention to K2
 
 
-MAX_T = 32  # the longest sequence K3 takes; the model routes longer self-attention to K2
+def seq_ok(t: int) -> bool:
+    """K3 takes sequences of T tokens: whole sequences in a warpgroup's rows."""
+    return 1 <= t <= MAX_T and WG_ROWS % t == 0
 
 
 def supported(t: int, c_in: int, c_out: int, dim_head: int) -> bool:
-    """Static eligibility of K3 for an (N, T, C) problem: 64-wide k-slices of
-    C_in and 64-column QKV groups, and a block's tiles in shared memory (one
-    32-token sequence fits only up to C = 640)."""
-    return (1 <= t <= MAX_T and c_in % 64 == 0 and c_out % 16 == 0 and dim_head % 64 == 0
-            and (t <= 16 or max(c_in, c_out) <= 640))
+    """Static eligibility of K3 for an (N, T, C) problem: T | 64, whole
+    k-stages of C_in, 16-byte output rows, head dim 64."""
+    return seq_ok(t) and c_in % BLOCK_K == 0 and c_out % 8 == 0 and dim_head == HEAD_DIM
 
 
 def _maybe_ln(x, ls, lb, eps):
@@ -89,29 +103,37 @@ def fused_temporal_mha(x, wq, wk, wv, wo, bo, *, heads: int, scale: Optional[flo
 
 
 def _launch(x, wq, wk, wv, wo, bo, ln_scale, ln_bias, *, heads: int, scale: float, residual: bool, eps: float):
-    """K3 on the card (the wrapper's checks, then the ctypes launch)."""
+    """K3 on the card: the wrapper's checks, the scratch, then the ctypes
+    entry (up to three launches, one count)."""
     n, t, c_in = x.shape
     inner = wq.shape[0]
     dim_head = inner // heads
     c_out = wo.shape[0]
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("fused_temporal_mha: x must be contiguous bf16")
-    if not supported(t, c_in, c_out, dim_head):
-        raise ValueError(f"fused_temporal_mha: unsupported shape T={t} C={c_in} C_out={c_out} D={dim_head}")
+    if not supported(t, c_in, c_out, dim_head) or inner != heads * dim_head or not 0 < n * t < 2 ** 31:
+        raise ValueError(f"fused_temporal_mha: unsupported shape N={n} T={t} C={c_in} C_out={c_out} D={dim_head}")
     ws = [w.to(torch.bfloat16).contiguous() for w in (wq, wk, wv, wo)]
     if any(w.shape != (inner, c_in) for w in ws[:3]) or ws[3].shape != (c_out, inner):
         raise ValueError("fused_temporal_mha: weight shapes do not match x")
+    if any(a.data_ptr() % 16 for a in (x, *ws)):
+        raise ValueError("fused_temporal_mha: x and the weights must be 16-byte aligned")
     bo = bo.float().contiguous()
     ls = lb = None
     if ln_scale is not None:
         ls, lb = ln_scale.float().contiguous(), ln_bias.float().contiguous()
     out = torch.empty(n, t, c_out, device=x.device, dtype=x.dtype)
-    fn = _build.load("temporal_attention").temporal_mha_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    xn = torch.empty(n * t, c_in, device=x.device, dtype=torch.bfloat16) if ls is not None else None
+    o = torch.empty(n * t, inner, device=x.device, dtype=torch.bfloat16)
+    splits = out_splits(n * t, c_out, inner, sm_count(x.device))
+    parts = workspace(splits, n * t, c_out, x.device)
+    fn = _build.function("temporal_attention", "temporal_mha_fwd",
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                         + [ctypes.c_int, ctypes.c_void_p])
     err = fn(x.data_ptr(), *(w.data_ptr() for w in ws), bo.data_ptr(),
              0 if ls is None else ls.data_ptr(), 0 if lb is None else lb.data_ptr(), out.data_ptr(),
-             n, t, c_in, heads, dim_head, c_out, float(scale), float(eps), int(residual),
+             0 if xn is None else xn.data_ptr(), o.data_ptr(), 0 if parts is None else parts.data_ptr(),
+             n, t, c_in, heads, dim_head, c_out, splits, float(scale), float(eps), int(residual),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "temporal_attention")
     ops.LAUNCHES["temporal_attention"] += 1

@@ -8,7 +8,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   2. build    compiles the ten CUDA kernel libraries (nvcc, sm_90a) from
               csrc/, in parallel, and prints the registers, spills and shared
               memory that `-Xptxas -v` reports for the Hopper-core kernels
-              (K2, K5, K6, K7).
+              (K2, K5, K6, K7 on the attention core; K3, K4 on the GEMM
+              core); fails on a spill or a serialised `wgmma` in any of them.
   3. kernels  each kernel against its plain PyTorch twin on the card, bf16,
               at the generation path's shapes (K2 also through the attention
               seam as the CLIP towers call it; K6 at the UNet's ds8 and ds16
@@ -36,7 +37,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               launches captured by wrapping the wrapper's launch), each
               beside SDPA (with the call's bool mask where masked), with the
               launch-weighted sum per UNet call; K2's cases include a fully
-              masked query row and the lse at Lk = 77. The training backward
+              masked query row and the lse at Lk = 77. K3 and K4 (the GEMM
+              core) at every distinct site of the same UNet call, captured
+              the same way, on the call's own inputs: each against its twin,
+              timed over 50 launches (events, host enqueue, profiler device
+              time) beside the model's plain route for the op on a block of
+              that width and the bound (24 rows C^2 operations for K4,
+              8 rows C^2 + 4 rows T C for K3), with the launches per call and
+              the launch-weighted sums per call. The training backward
               kernels K5 (flash dq/dk/dv) and K7 (epipolar dq/dk/dv, mask
               recomputed) against their chunked twins at the training
               sites, on the same forward outputs and logsumexp: dq, dk and
@@ -107,6 +115,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -554,8 +563,10 @@ def kernel_checks(dev) -> dict:
         plain = _time_ms(lambda: attn(norm(x)) + x)
     n, t, c = x.shape
     k3_flops = 2 * n * t * c * 4 * c + 4 * n * t * t * c
+    timed = _time_kernel(lambda: attn.fused_self_attention(x, norm))
     res["temporal_attention"] = dict(
-        max_abs_err=max(errs), ms=_time_ms(lambda: attn.fused_self_attention(x, norm)), plain_ms=plain,
+        max_abs_err=max(errs), ms=timed["ms"], host_ms=timed["host_ms"], device_ms=timed["device_ms"],
+        plain_ms=plain,
         twin_ms=_time_ms(lambda: ta.mha_plain(x, attn.to_q.weight, attn.to_k.weight, attn.to_v.weight,
                                               attn.to_out.weight, attn.to_out.bias, norm.weight, norm.bias,
                                               heads=5, scale=0.125, residual=True)),
@@ -579,8 +590,9 @@ def kernel_checks(dev) -> dict:
     ff_args = (x, blk.norm3.weight, blk.norm3.bias, blk.ff.geglu.proj.weight, blk.ff.geglu.proj.bias,
                blk.ff.fc2.weight, blk.ff.fc2.bias)
     rows = 32 * 1024
+    timed = _time_kernel(lambda: gff.fused_ln_geglu_ff(*ff_args))
     res["geglu_ff"] = dict(
-        max_abs_err=max(errs), ms=_time_ms(lambda: gff.fused_ln_geglu_ff(*ff_args)),
+        max_abs_err=max(errs), ms=timed["ms"], host_ms=timed["host_ms"], device_ms=timed["device_ms"],
         plain_ms=_time_ms(lambda: blk.ff(blk.norm3(x)) + x),
         twin_ms=_time_ms(lambda: gff.ff_plain(x.view(-1, 320), *ff_args[1:], inner=1280, eps=1e-5)),
         library_ms=None,
@@ -666,6 +678,97 @@ def flash_site_checks(model, dev) -> dict:
         json.dump(sites, f, indent=1)
     return dict(sites=sites, launches_per_call=launches, weighted_ms=total, weighted_sdpa_ms=total_sdpa,
                 weighted_bound_ms=total_bound)
+
+
+@torch.no_grad()
+def ff_mha_site_checks(model, dev) -> dict:
+    """K4 and K3 at every distinct site of one CamContextI2V batch-1 UNet
+    call: the call's launches are captured by wrapping the wrappers' launches
+    (`_launch`), each site's first inputs kept (the call's activations and
+    the model's weights). At each site the kernel against its plain twin on
+    those inputs; the kernel timed over 50 launches (events, host enqueue,
+    profiler device time); the model's plain route for the op (what
+    `ops.plain_twins()` runs: LN + two bf16 cuBLAS GEMMs for K4, the block's
+    LN, projections and attention seam for K3) on a block of that width; the
+    bound; the launch-weighted sums per UNet call of the kernel, the plain
+    route and the bound, per kernel."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.ops import geglu_ff as gff
+    from camc2v_tpu_torch.ops import temporal_attention as ta
+
+    seen, inputs = {}, {}
+    real_ff, real_mha = gff._launch, ta._launch
+
+    def spy_ff(x2, *w, eps):
+        key = ("geglu_ff", x2.shape[0], x2.shape[1])
+        seen[key] = seen.get(key, 0) + 1
+        inputs.setdefault(key, (x2.clone(), w, dict(eps=eps)))
+        return real_ff(x2, *w, eps=eps)
+
+    def spy_mha(x, *w, **kw):
+        key = ("temporal_attention", *x.shape, kw["heads"], w[5] is not None, kw["residual"])
+        seen[key] = seen.get(key, 0) + 1
+        inputs.setdefault(key, (x.clone(), w, kw))
+        return real_mha(x, *w, **kw)
+
+    gff._launch, ta._launch = spy_ff, spy_mha
+    try:
+        model.unet(*_unet_call_inputs(model, dev))
+    finally:
+        gff._launch, ta._launch = real_ff, real_mha
+    blocks = {}
+    sites = {"geglu_ff": {}, "temporal_attention": {}}
+    sums = {k: dict(launches_per_call=0, weighted_ms=0.0, weighted_plain_ms=0.0, weighted_bound_ms=0.0)
+            for k in sites}
+    errs = {k: [] for k in sites}
+    for key, n in sorted(seen.items(), key=lambda kv: (kv[0][0], -kv[1], kv[0])):
+        x, w, kw = inputs[key]
+        c = x.shape[-1]
+        if c not in blocks:
+            blocks[c] = _block(dev, c, c // 64)
+        blk = blocks[c]
+        if key[0] == "geglu_ff":
+            rows = x.shape[0]
+            name = f"({rows}, {c})"
+            kern = lambda: real_ff(x, *w, **kw)  # noqa: E731
+            ref = gff.ff_plain(x, *w, inner=w[4].shape[1], eps=kw["eps"])
+            xb = x.view(1, rows, c)
+            plain = lambda: blk.ff(blk.norm3(xb)) + xb  # noqa: E731
+            bound = _bound(2 * _nbytes(x) + _nbytes(w[2], w[4]), 24 * rows * c * c)
+        else:
+            _, nseq, t, _, heads, ln, residual = key
+            rows = nseq * t
+            name = f"({nseq}, {t}, {c}) heads {heads}{' LN+res' if ln else ''}"
+            kern = lambda: real_mha(x, *w, **kw)  # noqa: E731
+            ref = ta.mha_plain(x, *w, heads=heads, scale=kw["scale"], residual=residual, eps=kw["eps"])
+            attn, norm = blk.attn1, blk.norm1
+
+            def plain(x=x, attn=attn, norm=norm, ln=ln):
+                with ops.plain_twins():
+                    return attn(norm(x)) + x if ln else attn(x)
+            bound = _bound(2 * _nbytes(x) + _nbytes(*w[:4]), 8 * rows * c * c + 4 * rows * t * c)
+        errs[key[0]].append(_compare(f"{key[0]} UNet-call site {name}", kern(), ref))
+        timed = _time_kernel(kern)
+        plain_ms = _time_kernel(plain)["ms"]
+        sites[key[0]][name] = dict(launches_per_call=n, ms=timed["ms"], host_ms=timed["host_ms"],
+                                   device_ms=timed["device_ms"], plain_ms=plain_ms, **bound)
+        tot = sums[key[0]]
+        tot["launches_per_call"] += n
+        tot["weighted_ms"] += n * timed["ms"]
+        tot["weighted_plain_ms"] += n * plain_ms
+        tot["weighted_bound_ms"] += n * bound["bound_ms"]
+        print(f"  time {key[0]} site {name}: {n} launches per UNet call, kernel {timed['ms']:.4f} ms (host "
+              f"{timed['host_ms']:.4f}, profiler {timed['device_ms']}), plain route {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    for k, tot in sums.items():
+        print(f"  {k} over one CamContextI2V batch-1 UNet call: {tot['launches_per_call']} launches at "
+              f"{len(sites[k])} sites, launch-weighted kernel {tot['weighted_ms']:.3f} ms, plain route "
+              f"{tot['weighted_plain_ms']:.3f} ms, bound {tot['weighted_bound_ms']:.3f} ms", flush=True)
+    with open(os.path.join(OUT_DIR, "ff_mha_sites.json"), "w") as f:
+        json.dump(sites, f, indent=1)
+    del blocks
+    torch.cuda.empty_cache()
+    return {k: dict(sites=sites[k], max_abs_err=max(errs[k]), **sums[k]) for k in sites}
 
 
 def _sdpa_backward_ms(q, k, v, dout, mask=None, reps: int = 5) -> float:
@@ -978,20 +1081,36 @@ def camcontext_unet_check(model, dev) -> dict:
         print(f"  camcontext unet step batch 1: {step_ms:.3f} ms", flush=True)
         by_kernel, total = _profile_by_kernel(step, "camcontext_step_profile.txt",
                                               f"camcontext UNet step batch 1 (event-timed step {step_ms:.3f} ms)")
-        k6_ms, k6_calls = _kernels_by_policy(by_kernel)["K6"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.synchronize()
+        print(f"  camcontext unet step batch 1: host enqueue {host_ms:.3f} ms per call", flush=True)
+        parts = _kernels_by_policy(by_kernel)
+        k6_ms, k6_calls = parts["K6"]
         print(f"  profile: K6 (flash_fwd_kernel<LineMask>) {k6_ms:.3f} ms over {k6_calls} calls", flush=True)
-    return dict(step_ms=step_ms, profiled_ms=total, k6_profiled_ms=k6_ms, k6_profiled_calls=k6_calls)
+        gemm = {k: parts[k] for k in ("K4 GEMM 1", "K3 QKV + attention", "K3/K4 out GEMM", "row LN pass")}
+        print(f"  profile: K3 + K4 (GEMM core and LN pass) {sum(ms for ms, _ in gemm.values()):.3f} ms: "
+              f"{ {k: (round(ms, 3), n) for k, (ms, n) in gemm.items()} }", flush=True)
+    return dict(step_ms=step_ms, host_ms=host_ms, profiled_ms=total, k6_profiled_ms=k6_ms,
+                k6_profiled_calls=k6_calls, k3_k4_profiled_ms={k: ms for k, (ms, _) in gemm.items()})
 
 
 def _kernels_by_policy(by_kernel: dict) -> dict:
-    """Device time and calls of the Hopper core's kernels in a profile, by
+    """Device time and calls of the Hopper cores' kernels in a profile, by
     kernel: K2 and K6 (the forward body under BoolMask and LineMask), K5
     and K7 (the dq and dk/dv sweeps under each; the shared pre-pass kernel
-    is counted apart)."""
+    is counted apart), and the GEMM core's kernels of K3 and K4 by
+    epilogue (the out GEMM and the row LN pass are shared by K3 and K4; the
+    LN pass also by K8)."""
     out = {}
     for name, body, policy in (("K2", "flash_fwd_kernel", "BoolMask"), ("K6", "flash_fwd_kernel", "LineMask"),
                                ("K5", "flash_bwd_d", "BoolMask"), ("K7", "flash_bwd_d", "LineMask"),
-                               ("pre-pass", "flash_bwd_prepass", "")):
+                               ("pre-pass", "flash_bwd_prepass", ""), ("K4 GEMM 1", "gemm_kernel", "Geglu"),
+                               ("K3 QKV + attention", "gemm_kernel", "QkvAttention"),
+                               ("K3/K4 out GEMM", "gemm_kernel", "BiasResidual"), ("row LN pass", "ln_rows", "")):
         hits = [v for k, v in by_kernel.items() if body in k and policy in k]
         out[name] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
     return out
@@ -1479,16 +1598,22 @@ def main() -> None:
 
     secs = _build.build_all()
     print(f"[2 build] {len(_build.KERNELS)} kernel libraries built in {secs:.1f} s", flush=True)
-    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd"):
+    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd", "temporal_attention",
+                 "geglu_ff"):
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()[:160]}", flush=True)
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)) or "C7515" in line or "C7512" in line:
+                _fail(f"phase 2: {name} spills or serialises a wgmma: {line.strip()}")
 
     print("[3 kernels] kernel vs plain twin, bf16", flush=True)
     dc = presets.build("dynamicrafter_256", seed=1234)  # pins the card's numerics before the checks
     cc = presets.build("camcontexti2v_256", seed=4321)
     checks = kernel_checks(dev)
     checks["flash_attention"]["unet_call_sites"] = flash_site_checks(cc, dev)
+    for name, found in ff_mha_site_checks(cc, dev).items():
+        checks[name]["unet_call_sites"] = found
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], found["max_abs_err"])
     checks.update(backward_checks(dev))
     checks.update(route_kernel_checks(dev))
     torch.cuda.empty_cache()
@@ -1541,6 +1666,7 @@ def main() -> None:
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
+        # K3 and K4 on the GEMM core csrc/gemm_hopper.cuh, with the LN pass of csrc/layernorm.cuh
         "temporal_attention": ("camc2v_tpu_torch/csrc/temporal_attention.cu",
                                "camc2v_tpu/ops/temporal_attention.py:120"),
         "geglu_ff": ("camc2v_tpu_torch/csrc/geglu_ff.cu", "camc2v_tpu/ops/geglu_ff.py:92"),
@@ -1567,6 +1693,11 @@ def main() -> None:
         for name, (src, rep) in sources.items()
     ]
     kernels[-1]["launches_phase3"] = checks["phase3_launches"]["groupnorm_big"]
+    for k in kernels:
+        if k["name"] in ("temporal_attention", "geglu_ff"):
+            k["headers"] = ["camc2v_tpu_torch/csrc/gemm_hopper.cuh", "camc2v_tpu_torch/csrc/sm90.cuh",
+                            "camc2v_tpu_torch/csrc/layernorm.cuh"]
+            k["unet_call_weighted_ms"] = checks[k["name"]]["unet_call_sites"]["weighted_ms"]
     print(device_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -179,7 +179,7 @@ def build(src, flags, names=("flash_attention", "flash_bwd")):
             _build._LIBS[name] = ctypes.CDLL(str(lib))
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "C7515" in line or "C7512" in line:
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "C7515", "C7512")):
                 print(f"  nvcc {name}: {line.split(':', 1)[-1].strip()[:150]}", flush=True)
 
 
