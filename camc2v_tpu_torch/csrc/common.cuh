@@ -7,7 +7,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 typedef __nv_bfloat16 bf16;

@@ -1,8 +1,9 @@
-// The Hopper attention core of K2, K5, K6 and K7: tile geometry and the mask
-// policy of K2 and K5 (a bool mask shared by the heads); the sm_90a building
-// blocks their kernels are made of are in sm90.cuh. The kernel bodies, templates on
-// the mask policy, are in flash_hopper_kernels.cuh; K6 and K7's policy, the
-// epipolar line mask, is in epipolar_mask.cuh.
+// The Hopper attention core of K2, K5, K6, K6p and K7: tile geometry and the
+// mask policy of K2 and K5 (a bool mask shared by the heads); the sm_90a
+// building blocks their kernels are made of are in sm90.cuh. The kernel
+// bodies, templates on the mask policy, are in flash_hopper_kernels.cuh; the
+// epipolar policies (K6 and K7's line mask, K6p's penalties) are in
+// epipolar_mask.cuh.
 //
 // Tiles. Query tiles of BQ = 128 rows (the forward's block: two consumer
 // warpgroups of 64 rows each) and key tiles of BK = 64 keys; the tile maps
@@ -54,9 +55,17 @@
 //                                 tested (else all its keys are visible);
 //   bool visible(slot, r, c, j0, Lk)  the bit of row r (query) and key c of
 //                                 the staged tile, on fragment coordinates;
-//   float score(r, c, s)          the logit of a visible pair from its
-//                                 scaled product s.
-// K6p still runs on flash_core.cuh and its policy.
+//   void score(slot, r, c, j0, s0, s1)  the forward's logits of keys c and
+//                                 c + 1 (c even) of row r of the tile at
+//                                 key j0, raised in place from their scaled
+//                                 products s0, s1 (visible pairs; `slot` is
+//                                 the staged tile). Only the penalty policy
+//                                 changes them; the backward sweeps serve
+//                                 the policies that do not. The hook takes
+//                                 the even key of a pair: for an odd
+//                                 column 8 i + 2 (lane % 4) + 1, even after
+//                                 `& ~1`, nvcc 12.8 dropped the `>> 3` of
+//                                 `tile_offset`'s 16-byte chunk.
 #pragma once
 
 #include "sm90.cuh"
@@ -111,7 +120,7 @@ struct BoolMask {
   __device__ bool visible(const uint8_t* tile, int r, int c, int j0, int Lk) const {
     return on ? tile[r * BK + c] != 0 : j0 + c < Lk;
   }
-  __device__ float score(int, int, float s) const { return s; }
+  __device__ void score(const uint8_t*, int, int, int, float&, float&) const {}
 };
 
 // ---------------------------------------------------------------- tensor maps (host)

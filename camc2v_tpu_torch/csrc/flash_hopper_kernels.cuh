@@ -1,7 +1,8 @@
 // The kernel bodies of the Hopper attention core (flash_hopper.cuh), templates
-// on the mask policy: the forward (K2 under BoolMask, K6 under LineMask) and
-// the backward's pre-pass and two sweeps (K5, K7). Each kernel file includes
-// this header and instantiates the bodies with its policy.
+// on the mask policy: the forward (K2 under BoolMask, K6 under LineMask, K6p
+// under PenaltyMask) and the backward's pre-pass and two sweeps (K5, K7).
+// Each kernel file includes this header and instantiates the bodies with its
+// policy.
 //
 // Forward: one block per (128-query tile, head, batch), the heads of a query
 // tile adjacent in the grid so they share the policy's tile data and K/V in
@@ -192,15 +193,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         }
       }
     }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      p.mask.score(Ms, r0, 8 * i + 2 * tq4, j0, sc[4 * i], sc[4 * i + 1]);
+      p.mask.score(Ms, r0 + 8, 8 * i + 2 * tq4, j0, sc[4 * i + 2], sc[4 * i + 3]);
+    }
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float v = p.mask.score(j < 2 ? r0 : r0 + 8, 8 * i + 2 * tq4 + (j & 1), sc[4 * i + j]);
-        sc[4 * i + j] = v;
-        if (j < 2) mx0 = fmaxf(mx0, v);
-        else mx1 = fmaxf(mx1, v);
+        if (j < 2) mx0 = fmaxf(mx0, sc[4 * i + j]);
+        else mx1 = fmaxf(mx1, sc[4 * i + j]);
       }
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
@@ -472,8 +476,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tqs, const __grid_consta
     for (int i = 0; i < 8; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int r = j < 2 ? r0 : r0 + 8, c = 8 * i + 2 * tq4 + (j & 1);
-        const float pr = ex2(fmaf(p.mask.score(r, c, sc[4 * i + j]), LOG2E, j < 2 ? -ls0 : -ls1));
+        const float pr = ex2(fmaf(sc[4 * i + j], LOG2E, j < 2 ? -ls0 : -ls1));
         sc[4 * i + j] = pr * (dp[4 * i + j] - (j < 2 ? dl0 : dl1));
       }
     }
@@ -641,8 +644,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tqs, const __grid_const
         const float2 dc = *reinterpret_cast<const float2*>(dl_s + c);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int kr = j < 2 ? k0 : k0 + 8, qc = c + (j & 1);
-          const float pr = ex2(fmaf(p.mask.score(qc, kr, st[4 * i + j]), LOG2E, -(j & 1 ? lc.y : lc.x) * LOG2E));
+          const float pr = ex2(fmaf(st[4 * i + j], LOG2E, -(j & 1 ? lc.y : lc.x) * LOG2E));
           st[4 * i + j] = pr;
           dpt[4 * i + j] = pr * (dpt[4 * i + j] - (j & 1 ? dc.y : dc.x));
         }

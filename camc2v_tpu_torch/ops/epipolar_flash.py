@@ -39,15 +39,18 @@ K2's and K5's, under the line-mask policy. `epipolar_flash_attention` runs
 twins; lines and tile map get no gradient.
 
 K6p (`csrc/epipolar_precomp.cu`) replaces `_v2p_kernel`, the path of
-`epipolar_flash_attention(..., penalties=)`: K6 with the mask read from
-bf16 additive penalties (0 / -1e30) that `materialize_penalties` builds once
-per request, streamed per 64x64 tile beside the same skip map. The port's
-penalties cover the t*hw frame keys only, (pb, Lq, t*hw); the register keys
-stay always visible, as in K6, so the keys are not padded (the JAX array
-carries a trailing block_k tile of register and padding columns). Batch b
-reads penalty batch b % pb: the fused-CFG batch of 2B shares one copy. The
-penalties are an inference-path option: with a gradient wanted, the
-backward is K7's (or its twin's), on the lines' mask, as in the JAX package.
+`epipolar_flash_attention(..., penalties=)`: the Hopper core's forward body
+under a third mask policy (`PenaltyMask`, `csrc/epipolar_mask.cuh`): each
+frame key's logit raised by its bf16 additive penalty (0 / -1e30 from
+`materialize_penalties`, built once per request), the 128 x 64 penalty tile
+streamed by TMA into the ring beside K and V, the same skip map as K6. The
+port's penalties cover the t*hw frame keys only, (pb, Lq, t*hw); the
+register keys stay always visible, as in K6, so the keys are not padded
+(the JAX array carries a trailing block_k tile of register and padding
+columns). Batch b reads penalty batch b % pb: the fused-CFG batch of 2B
+shares one copy. The penalties are an inference-path option: with a
+gradient wanted, the backward is K7's (or its twin's), on the lines' mask,
+as in the JAX package.
 
 The least time the function needs counts 4*D operations per query-key pair
 whose mask bit is set (`mask_pairs`; the backward 10*D); the work K6 does
@@ -410,7 +413,7 @@ def _kernel_lines(lines):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 7 + [_I] * 10 + [_F] * 3 + [_P]
 _EPI_BWD_ARGS = [_P] * 14 + [_I] * 10 + [_F] * 3 + [_P]
-_PRECOMP_ARGS = [_P] * 6 + [_I] * 11 + [_F, _P]
+_PRECOMP_ARGS = [_P] * 6 + [_I] * 10 + [_F, _P]
 
 
 def _launch_fwd(q, k, v, lines, tile_any, geom, *, want_lse: bool):
@@ -435,15 +438,15 @@ def _launch_precomp(q, k, v, lines, penalties, tile_any, geom):
     b, lq, heads, d = q.shape
     tile_any, cols, scale_bf16, _ = _kernel_args(q, k, v, lines, tile_any, geom,
                                                  "epipolar_flash_attention(penalties)")
-    if penalties.dtype != torch.bfloat16 or penalties.device != q.device:
-        raise ValueError(f"epipolar_flash_attention: penalties must be bf16 on {q.device} (got {penalties.dtype})")
     penalties = penalties.contiguous()
+    if penalties.dtype != torch.bfloat16 or penalties.device != q.device or penalties.data_ptr() % 16:
+        raise ValueError(f"epipolar_flash_attention: penalties must be bf16 on {q.device} on a 16-byte boundary "
+                         f"(got {penalties.dtype})")
     out = torch.empty_like(q)
     fn = _build.function("epipolar_precomp", "epipolar_precomp_fwd", _PRECOMP_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), penalties.data_ptr(), tile_any.data_ptr(), out.data_ptr(),
-             b, lq, k.shape[1], heads, d, geom["t"] * geom["h"] * geom["w"], geom["num_registers"],
-             penalties.shape[0], KERNEL_BQ, KERNEL_BK, cols, scale_bf16,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             b, lq, k.shape[1], heads, d, geom["t"], geom["h"] * geom["w"], geom["num_registers"],
+             penalties.shape[0], cols, scale_bf16, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "epipolar_flash_attention(penalties)")
     ops.LAUNCHES["epipolar_flash_precomp"] += 1
     return out

@@ -25,8 +25,12 @@ K9 and K10 (`csrc/groupnorm_twophase.cu`) replace the Pallas kernels
 `group_norm_fused_big`): GroupNorm with statistics per (sample, group) over
 a (B, T, ..., C) map, from f32 raw moments with the single-pass variance
 max(E[x^2] - E[x]^2, 0), a different numeric from K1's two-pass one. K9 is
-two launches (per-row moments, then apply) around a small combine on a
-(B, 2, C) array, as the JAX package runs it; K10 is the same function in one
+one ctypes call that enqueues two launches and nothing between them: the
+moments launch sums slices of each sample's rows and its last block per
+sample combines the slices' partials into the (B, 2, C) mean and inverse
+std on the card (the JAX package runs that combine as small XLA ops between
+its two kernels); the apply launch normalises. Its grid follows
+`temporal_plan`, sized from the SM count. K10 is the same function in one
 cooperative launch. Their plain twin (`group_norm_temporal_plain`) has the
 JAX numerics: per-row f32 moments, the one-hot group combine, the clamp.
 Their gradient recomputes the exact two-pass `group_norm_plain` (the JAX
@@ -43,11 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.ops import _build
+from camc2v_tpu_torch.ops._gemm import sm_count
 
 
 def group_norm_plain(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
@@ -259,27 +265,77 @@ def _twophase_args(x, scale, bias, num_groups: int, what: str):
     return x.contiguous(), scale, bias
 
 
+# K9's plan: the kernels' partition of each sample's rows (the C entry
+# computes a slice's rows with the same formula as `slice_rows`)
+K9_PIECE_BYTES = 16   # one thread's load: 8 bf16 or 4 f32 channels
+K9_THREADS = 256      # a block's threads, where a row has fewer pieces
+K9_MAX_PIECES = 512   # the most pieces a row may have (one thread each)
+K9_UNROLL = 4         # loads in flight per thread (csrc K9_UNROLL)
+K9_BLOCKS_PER_SM = 2  # blocks per SM the grid is sized for
+
+
+class TemporalPlan(NamedTuple):
+    splits: int   # slices (blocks) per sample
+    rgroups: int  # row groups of a block
+    pieces: int   # 16-byte pieces of a row (threads per row group)
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_plan(b: int, rows: int, c: int, elem: int, sms: int) -> TemporalPlan:
+    """K9's grid for b samples of `rows` rows of c channels of `elem` bytes
+    on `sms` SMs: at most K9_BLOCKS_PER_SM blocks per SM over all samples
+    (one wave: the apply kernel's registers let two 256-thread blocks share
+    an SM), and no more slices than leave each thread K9_UNROLL rows."""
+    pieces = c * elem // K9_PIECE_BYTES
+    if c * elem % K9_PIECE_BYTES or not 0 < pieces <= K9_MAX_PIECES:
+        raise ValueError(f"group_norm_fused_temporal: C={c} must fill whole 16-byte pieces, at most {K9_MAX_PIECES}")
+    rgroups = max(1, K9_THREADS // pieces)
+    want = K9_BLOCKS_PER_SM * sms // b
+    splits = max(1, min(want, -(-rows // (rgroups * K9_UNROLL))))
+    return TemporalPlan(splits, rgroups, pieces)
+
+
+def slice_rows(rows: int, splits: int, si: int) -> tuple[int, int]:
+    """Rows [r0, r1) of slice si of a sample (the kernels' formula)."""
+    return rows * si // splits, rows * (si + 1) // splits
+
+
+_scratch: dict = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TEMPORAL_ARGS = [_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 4 + [_F, _I, _I, _P]
+
+
+def _temporal_scratch(device, stream: int, b: int, floats: int):
+    """The stream's K9 scratch, kept across calls (stream order makes each
+    call's use of it end before the next one's begins): f32 workspace and
+    stats, and the samples' arrival counters, zeroed once and left zero by
+    every call. Grown when a call needs more."""
+    key = (device, stream)
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < floats or counters.numel() < b:
+        ws = torch.empty(floats, device=device, dtype=torch.float32)
+        counters = torch.zeros(b, device=device, dtype=torch.int32)
+        _scratch[key] = ws, counters
+    return ws, counters
+
+
 def _launch_temporal(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
-    """K9: moments launch, the (B, 2, C) combine, apply launch."""
+    """K9: one ctypes call, two launches (moments with the combine, apply)."""
     x, scale, bias = _twophase_args(x, scale, bias, num_groups, "group_norm_fused_temporal")
-    _, (b, t, hw, c) = _sequence_view(x)
-    n = b * t
-    split = _splits(n, hw)
+    if x.data_ptr() % K9_PIECE_BYTES:
+        raise ValueError("group_norm_fused_temporal: x must start on a 16-byte boundary")
+    b, c = x.shape[0], x.shape[-1]
+    rows = x.numel() // (b * c)
+    plan = temporal_plan(b, rows, c, x.element_size(), sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    lib = _build.load("groupnorm_twophase")
-    ws = torch.empty(n, split, 2, c, device=x.device, dtype=torch.float32)
-    fn = lib.gn_row_moments
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    _build.check(fn(x.data_ptr(), ws.data_ptr(), n, hw, c, split, is_bf16, stream), "group_norm_fused_temporal")
-    stats = combine_moments(ws.view(b, t * split, 2, c), t * hw, num_groups=num_groups, eps=eps).contiguous()
+    parts = b * plan.splits * 2 * num_groups
+    ws, counters = _temporal_scratch(x.device, stream, b, parts + b * 2 * c)
     y = torch.empty_like(x)
-    fn = lib.gn_apply_stats
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    _build.check(fn(x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), n, hw, c, t,
-                    split, int(silu), is_bf16, stream), "group_norm_fused_temporal")
+    fn = _build.function("groupnorm_twophase", "gn_temporal", _TEMPORAL_ARGS)
+    err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * parts,
+             counters.data_ptr(), b, rows, c, num_groups, plan.splits, plan.rgroups, float(eps), int(silu),
+             int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "group_norm_fused_temporal")
     ops.LAUNCHES["groupnorm_temporal"] += 1
     return y
 

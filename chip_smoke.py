@@ -8,8 +8,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   2. build    compiles the ten CUDA kernel libraries (nvcc, sm_90a) from
               csrc/, in parallel, and prints the registers, spills and shared
               memory that `-Xptxas -v` reports for the Hopper-core kernels
-              (K2, K5, K6, K7 on the attention core; K3, K4 on the GEMM
-              core); fails on a spill or a serialised `wgmma` in any of them.
+              (K2, K5, K6, K6p, K7 on the attention core; K3, K4 on the GEMM
+              core); fails on a spill or a serialised `wgmma` in any of them,
+              or when K2, K5, K6 or K7 take other registers than the
+              recorded ones (`CORE_REGISTERS`); prints K6p's dynamic shared
+              memory and blocks per SM at D = 64 and 128 (the runtime's
+              occupancy) and fails unless two blocks fit at D = 64.
   3. kernels  each kernel against its plain PyTorch twin on the card, bf16,
               at the generation path's shapes (K2 also through the attention
               seam as the CLIP towers call it; K6 at the UNet's ds8 and ds16
@@ -52,7 +56,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               beside the twin, the backward alone of scaled dot-product
               attention (with the materialised bool mask at each K7 site,
               at each K5 site) and the bound (10*D operations per query-key
-              pair, per set mask bit for K7).
+              pair, per set mask bit for K7). K9 (the routes' GroupNorm)
+              and K6p (the routes' epipolar attention on penalties): events,
+              host enqueue and profiler device time per call beside the twin,
+              the library call and the bound; K9 must run exactly its two
+              kernels per call (no copy or memset in the profile) and give
+              the same bits on two runs.
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -94,7 +103,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               CAMC2V_FUSED_CFG; phases 1-7 run with them off): one fused-CFG
               batch-2B UNet call (the uncond padded to the context's length,
               the penalties shared, not stacked) with the kernels against the
-              same call inside `ops.plain_twins()`, relative L2 <= 5e-2; then
+              same call inside `ops.plain_twins()`, relative L2 <= 5e-2, timed
+              (events, host enqueue, profiler device time; K6p's, K6's, K9's
+              and the row LN's device time in it), each route left out in
+              turn; then
               two batch-1 DDIM requests, one at batch 2 and one batch-1
               13-step DPM++(2M) request (the bench recipe otherwise), each
               finite (B, 16, 256, 256, 3) with the split, peak memory and the
@@ -223,6 +235,31 @@ def _profiled_ms(fn, reps: int) -> float | None:
         return total / 1e3 / reps if total else None
     except RuntimeError:
         return None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _kernels_per_call(fn, reps: int = 10) -> dict:
+    """{kernel: launches per call} of `reps` calls of `fn` by torch.profiler
+    (device events only: kernels, memsets and copies), after a warm-up call;
+    the kernel names without their template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            m = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
+            name = m.group(1) if m else e.key
+            out[name] = out.get(name, 0) + e.count / reps
+    return out
 
 
 def _time_kernel(fn, reps: int = 50) -> dict:
@@ -926,11 +963,14 @@ def route_kernel_checks(dev) -> dict:
     plain = _time_ms(lambda: ln.layer_norm_plain(x, s_, b_))
     default = _time_ms(lambda: torch.nn.functional.layer_norm(x.float(), (320,), s_, b_, 1e-5).to(bf))
     library = _time_ms(lambda: torch.nn.functional.layer_norm(x, (320,), s_.to(bf), b_.to(bf), 1e-5))
-    res["layernorm"] = dict(max_abs_err=max(errs), ms=_time_ms(lambda: ln.layer_norm_fused(x, s_, b_)),
+    t8 = _time_kernel(lambda: ln.layer_norm_fused(x, s_, b_))
+    res["layernorm"] = dict(max_abs_err=max(errs), ms=t8["ms"], host_ms=t8["host_ms"], device_ms=t8["device_ms"],
                             plain_ms=plain, twin_ms=plain, library_ms=library, default_route_ms=default,
                             **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
+    print(f"  time layernorm (32768, 320): {t8['ms']:.4f} ms (host {t8['host_ms']:.4f}, device "
+          f"{_fmt(t8['device_ms'])})", flush=True)
 
-    # K9 at a 5-D UNet site and the VAE's 256x256 map viewed as (16, 16, 4096, 128); K10 at the 5-D site
+    # K9 and K10 at a 5-D UNet site and the VAE's 256x256 map viewed as (16, 16, 4096, 128)
     errs, errs10 = [], []
     for label, shape, silu in [("5-D ds1 (2,16,32,32,320) silu", (2, 16, 32, 32, 320), True),
                                ("5-D ds1 (2,16,32,32,320)", (2, 16, 32, 32, 320), False),
@@ -938,28 +978,41 @@ def route_kernel_checks(dev) -> dict:
         x = randn(*shape, scale=2.0, mean=0.5).to(bf)
         s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
         twin = gn.group_norm_temporal_plain(x, s_, b_, silu=silu)
-        errs.append(_compare(f"groupnorm_temporal {label}", gn.group_norm_fused_temporal(x, s_, b_, silu=silu), twin))
+        got = gn.group_norm_fused_temporal(x, s_, b_, silu=silu)
+        errs.append(_compare(f"groupnorm_temporal {label}", got, twin))
+        if not torch.equal(got, gn.group_norm_fused_temporal(x, s_, b_, silu=silu)):
+            _fail(f"groupnorm_temporal {label}: two runs on the same input give different bits")
         errs10.append(_compare(f"groupnorm_big {label}", gn.group_norm_fused_big(x, s_, b_, silu=silu), twin))
+    print("  groupnorm_temporal: two runs bit-identical at every site", flush=True)
     sites = {}
     for label, shape in [("5-D ds1 (2,16,32,32,320)", (2, 16, 32, 32, 320)),
                          ("VAE 256^2 view (16,16,4096,128)", (16, 16, 4096, 128))]:
         x = randn(*shape, scale=2.0, mean=0.5).to(bf)
         s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
         xn = x.reshape(shape[0], -1, shape[-1]).transpose(1, 2)  # (N, C, positions), the library's layout
+        k9 = lambda: gn.group_norm_fused_temporal(x, s_, b_, silu=True)  # noqa: E731
+        per_call = _kernels_per_call(k9)
+        if sorted(per_call) != ["gn_apply_kernel", "gn_moments_kernel"] or set(per_call.values()) != {1.0}:
+            _fail(f"groupnorm_temporal {label}: one call ran {per_call}, not one moments and one apply kernel")
+        t9, t10 = _time_kernel(k9), _time_kernel(lambda: gn.group_norm_fused_big(x, s_, b_, silu=True))
         sites[label] = dict(
-            k9_ms=_time_ms(lambda: gn.group_norm_fused_temporal(x, s_, b_, silu=True)),
-            k10_ms=_time_ms(lambda: gn.group_norm_fused_big(x, s_, b_, silu=True)),
+            k9_ms=t9["ms"], k9_host_ms=t9["host_ms"], k9_device_ms=t9["device_ms"], k9_kernels_per_call=per_call,
+            k10_ms=t10["ms"], k10_device_ms=t10["device_ms"],
             twin_ms=_time_ms(lambda: gn.group_norm_temporal_plain(x, s_, b_, silu=True), reps=3),
             library_ms=_time_ms(lambda: torch.nn.functional.group_norm(xn, 32, s_.to(bf), b_.to(bf), 1e-5)),
             **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
-        print(f"  time groupnorm {label} + SiLU: K9 {sites[label]['k9_ms']:.4f} ms, K10 {sites[label]['k10_ms']:.4f} "
-              f"ms, twin {sites[label]['twin_ms']:.4f} ms, library (F.group_norm, no SiLU) "
-              f"{sites[label]['library_ms']:.4f} ms, bound {sites[label]['bound_ms']:.4f} ms", flush=True)
+        r = sites[label]
+        print(f"  time groupnorm {label} + SiLU: K9 {r['k9_ms']:.4f} ms (host {r['k9_host_ms']:.4f}, device "
+              f"{_fmt(r['k9_device_ms'])}; kernels per call {per_call}), K10 {r['k10_ms']:.4f} ms (device "
+              f"{_fmt(r['k10_device_ms'])}), twin {r['twin_ms']:.4f} ms, library (F.group_norm, no SiLU) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (x read twice: "
+              f"{1.5 * r['bound_ms']:.4f})", flush=True)
     main = sites["5-D ds1 (2,16,32,32,320)"]
     common = dict(plain_ms=main["twin_ms"], twin_ms=main["twin_ms"], library_ms=main["library_ms"],
                   bound_ms=main["bound_ms"], bound_by=main["bound_by"], sites=sites)
-    res["groupnorm_temporal"] = dict(max_abs_err=max(errs), ms=main["k9_ms"], **common)
-    res["groupnorm_big"] = dict(max_abs_err=max(errs10), ms=main["k10_ms"], **common)
+    res["groupnorm_temporal"] = dict(max_abs_err=max(errs), ms=main["k9_ms"], host_ms=main["k9_host_ms"],
+                                     device_ms=main["k9_device_ms"], **common)
+    res["groupnorm_big"] = dict(max_abs_err=max(errs10), ms=main["k10_ms"], device_ms=main["k10_device_ms"], **common)
 
     # K6p: the UNet's ds8 and ds16 levels at batch 2 reading one batch of
     # penalties (the fused-CFG stack of one request), the bench geometry
@@ -983,9 +1036,11 @@ def route_kernel_checks(dev) -> dict:
         errs.append(_compare(f"epipolar_precomp {label}", run(), twin()))
         pairs = ef.mask_pairs(lines, heads=heads, **kw)
         pen_bytes = ef.visible_penalty_bytes(tiles, t=t, hw=hw, pb=1, block_q=ef.KERNEL_BQ, block_k=ef.KERNEL_BK)
-        site = dict(ms=_time_ms(run), in_kernel_k6_ms=_time_ms(lambda: ef.epipolar_flash_attention(
-            q, k, v, lines, block_k=bk, tile_any=tiles, **kw)), penalty_bytes_read=pen_bytes,
-            penalty_bytes=_nbytes(pen), **_bound(_nbytes(q, k, v, q, tiles) + pen_bytes, 4 * 64 * pairs))
+        t6p = _time_kernel(run)
+        t6 = _time_kernel(lambda: ef.epipolar_flash_attention(q, k, v, lines, block_k=bk, tile_any=tiles, **kw))
+        site = dict(ms=t6p["ms"], host_ms=t6p["host_ms"], device_ms=t6p["device_ms"], in_kernel_k6_ms=t6["ms"],
+                    in_kernel_k6_device_ms=t6["device_ms"], penalty_bytes_read=pen_bytes, penalty_bytes=_nbytes(pen),
+                    **_bound(_nbytes(q, k, v, q, tiles) + pen_bytes, 4 * 64 * pairs))
         if label.startswith("ds8"):
             site["twin_ms"] = _time_ms(twin, reps=2)
             mask = torch.cat([pen, torch.zeros(1, lq, nreg, dtype=bf, device=dev)], dim=-1)[:, None]
@@ -994,15 +1049,18 @@ def route_kernel_checks(dev) -> dict:
                 lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3)
             del mask
         sites[label] = site
-        print(f"  time epipolar_precomp {label}: kernel {site['ms']:.4f} ms (in-kernel mask K6 on the same inputs "
-              f"{site['in_kernel_k6_ms']:.4f} ms), bound {site['bound_ms']:.4f} ms ({site['bound_by']}; penalty "
+        print(f"  time epipolar_precomp {label}: kernel {site['ms']:.4f} ms (host {site['host_ms']:.4f}, device "
+              f"{_fmt(site['device_ms'])}; in-kernel mask K6 on the same inputs {site['in_kernel_k6_ms']:.4f} ms, "
+              f"device {_fmt(site['in_kernel_k6_device_ms'])}), bound {site['bound_ms']:.4f} ms "
+              f"({site['bound_by']}; penalty "
               f"subtiles left on {pen_bytes / 2 ** 20:.1f} of {_nbytes(pen) / 2 ** 20:.1f} MiB)", flush=True)
         del pen
         torch.cuda.empty_cache()
     s8 = sites["ds8 B=2 pb=1 (2,16384,5,64)"]
     print(f"  time epipolar_precomp ds8: chunked twin {s8['twin_ms']:.4f} ms, library (SDPA, penalties as a bf16 "
           f"additive mask) {s8['library_ms']:.4f} ms", flush=True)
-    res["epipolar_flash_precomp"] = dict(max_abs_err=max(errs), ms=s8["ms"], plain_ms=s8["twin_ms"],
+    res["epipolar_flash_precomp"] = dict(max_abs_err=max(errs), ms=s8["ms"], host_ms=s8["host_ms"],
+                                         device_ms=s8["device_ms"], plain_ms=s8["twin_ms"],
                                          twin_ms=s8["twin_ms"], library_ms=s8["library_ms"],
                                          bound_ms=s8["bound_ms"], bound_by=s8["bound_by"], sites=sites)
     res["phase3_launches"] = {n: ops.LAUNCHES[n] for n in ("layernorm", "groupnorm_temporal", "groupnorm_big",
@@ -1511,8 +1569,10 @@ def _routes_unet_check(model, dev) -> dict:
         with ops.plain_twins():
             ref = model.apply_model(x2, t2, c2, fs2)
         _rel_check("routes fused-CFG unet call (2,16,32,32,8), penalties shared", got, ref)
-        step_ms = _time_ms(lambda: model.apply_model(x2, t2, c2, fs2), reps=3)
-        print(f"  routes fused-CFG UNet call: {step_ms:.3f} ms; launches {launches}; penalties "
+        timed = _time_kernel(lambda: model.apply_model(x2, t2, c2, fs2), reps=5)
+        step_ms = timed["ms"]
+        print(f"  routes fused-CFG UNet call: {step_ms:.3f} ms (host enqueue {timed['host_ms']:.3f} ms, device "
+              f"{_fmt(timed['device_ms'])} per call); launches {launches}; penalties "
               f"{ {ds: tuple(p.shape) for ds, p in pen.items()} }", flush=True)
         # each route left out in turn, the others on: what each one moves
         fs = model.get_fs(batch)
@@ -1529,10 +1589,19 @@ def _routes_unet_check(model, dev) -> dict:
               flush=True)
         by_kernel, total = _profile_by_kernel(lambda: model.apply_model(x2, t2, c2, fs2), "routes_step_profile.txt",
                                               f"routes fused-CFG UNet call, batch 2 (event-timed {step_ms:.3f} ms)")
+        routes_kernels = {name: (sum(ms for k, (ms, _) in by_kernel.items() if re.search(pattern, k)),
+                                 sum(n for k, (_, n) in by_kernel.items() if re.search(pattern, k)))
+                          for name, pattern in (("K6p", r"flash_fwd_kernel<\d+, hflash::PenaltyMask>"),
+                                                ("K6", r"flash_fwd_kernel<\d+, hflash::LineMask>"),
+                                                ("K9", r"gn_moments_kernel|gn_apply_kernel"),
+                                                ("K8 / row LN pass", r"ln_rows"))}
+        print("  profile: the routes' kernels in the call (ms, calls): "
+              + ", ".join(f"{k} {ms:.3f}, {n}" for k, (ms, n) in routes_kernels.items()), flush=True)
     for name in ("layernorm", "groupnorm_temporal", "epipolar_flash_precomp", "flash_attention"):
         if launches[name] == 0:
             _fail(f"routes: {name} never launched in the fused UNet call: {launches}")
-    return dict(step_ms=step_ms, leave_one_out_ms=leave_out, launches=launches,
+    return dict(step_ms=step_ms, host_ms=timed["host_ms"], device_ms=timed["device_ms"],
+                routes_kernels_ms=routes_kernels, leave_one_out_ms=leave_out, launches=launches,
                 rel_l2=((got - ref).norm() / ref.norm()).item(),
                 profiled_ms=total, profile_top=sorted(((k, ms, n) for k, (ms, n) in by_kernel.items()),
                                                       key=lambda e: -e[1])[:25])
@@ -1582,6 +1651,61 @@ def routes_phase(dev, device_line: str) -> dict:
     return dict(unet_step=step, requests=requests, launches=launches)
 
 
+# registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
+# kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
+# and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
+# move them
+CORE_REGISTERS = {("flash_fwd_kernel", "BoolMask"): (94, 134), ("flash_bwd_dq_kernel", "BoolMask"): (138, 170),
+                  ("flash_bwd_dkv_kernel", "BoolMask"): (168, 197), ("flash_fwd_kernel", "LineMask"): (95, 150),
+                  ("flash_bwd_dq_kernel", "LineMask"): (138, 168), ("flash_bwd_dkv_kernel", "LineMask"): (163, 200)}
+
+
+def _ptxas_registers(log: str) -> dict:
+    """{mangled kernel name: registers} from an `-Xptxas -v` log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = int(m.group(1))
+            entry = None
+    return out
+
+
+def _check_core_registers(build) -> dict:
+    """Phase 2's check of the attention core: K2/K5/K6/K7 keep their
+    registers, and K6p's shared memory and blocks per SM at D = 64 and 128
+    (from the runtime: the dynamic shared memory is not in nvcc's report)."""
+    import ctypes
+
+    regs = {}
+    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd", "epipolar_precomp"):
+        regs.update(_ptxas_registers((build.BUILD_DIR / f"{name}.log").read_text()))
+    found = {}
+    for (body, policy), want in list(CORE_REGISTERS.items()) + [(("flash_fwd_kernel", "PenaltyMask"), None)]:
+        got = tuple(n for dp in (64, 128) for k, n in regs.items() if body + "ILi" + str(dp) in k and policy in k)
+        found[f"{body} {policy}"] = got
+        print(f"  registers {body} {policy} (D <= 64, <= 128): {got}" + (f", recorded {want}" if want else ""),
+              flush=True)
+        if len(got) != 2 or (want is not None and got != want):
+            _fail(f"phase 2: {body} under {policy} takes {got} registers, not {want}")
+    with torch.no_grad():
+        fn = build.function("epipolar_precomp", "epipolar_precomp_occupancy",
+                            [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)])
+        for d in (64, 128):
+            smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+            build.check(fn(d, ctypes.byref(smem), ctypes.byref(blocks)), "epipolar_precomp_occupancy")
+            found[f"K6p D={d}"] = dict(smem_bytes=smem.value, blocks_per_sm=blocks.value)
+            print(f"  K6p forward (PenaltyMask) D={d}: {smem.value} bytes of shared memory a block, "
+                  f"{blocks.value} blocks per SM", flush=True)
+            if blocks.value < (2 if d == 64 else 1):
+                _fail(f"phase 2: K6p at D={d} fits {blocks.value} blocks per SM")
+    return found
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("CUDA is not available (this smoke run needs the GPU; there is no CPU fallback)")
@@ -1598,13 +1722,14 @@ def main() -> None:
 
     secs = _build.build_all()
     print(f"[2 build] {len(_build.KERNELS)} kernel libraries built in {secs:.1f} s", flush=True)
-    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd", "temporal_attention",
-                 "geglu_ff"):
+    for name in ("flash_attention", "flash_bwd", "epipolar_flash", "epipolar_bwd", "epipolar_precomp",
+                 "temporal_attention", "geglu_ff"):
         for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()[:160]}", flush=True)
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)) or "C7515" in line or "C7512" in line:
                 _fail(f"phase 2: {name} spills or serialises a wgmma: {line.strip()}")
+    _check_core_registers(_build)
 
     print("[3 kernels] kernel vs plain twin, bf16", flush=True)
     dc = presets.build("dynamicrafter_256", seed=1234)  # pins the card's numerics before the checks
