@@ -42,7 +42,7 @@
 // of a slice.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "gn_pieces.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -191,44 +191,6 @@ int big_grid(int B, long long rows, int c) {
 
 // ---------------------------------------------------------------- K9
 
-constexpr int K9_UNROLL = 4;  // 16-byte loads in flight per thread (ops/groupnorm.py::K9_UNROLL)
-
-// one 16-byte piece of a row: VEC channels, as f32
-template <typename T> struct Piece;
-template <> struct Piece<bf16> {
-  static constexpr int VEC = 8;
-  __device__ __forceinline__ static void load(const bf16* p, float (&f)[8]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = __bfloat1622float2(e[j]);
-      f[2 * j] = v.x;
-      f[2 * j + 1] = v.y;
-    }
-  }
-  __device__ __forceinline__ static void store(bf16* p, const float (&f)[8]) {
-    uint4 u;
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) e[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
-};
-template <> struct Piece<float> {
-  static constexpr int VEC = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&f)[4]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&f)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
 // K9's moments launch, grid (splits, B), (C / VEC) * rgroups threads: thread
 // (rg, p) sums piece p of rows r0 + rg, r0 + rg + rgroups, ... of its
 // block's slice [r0, r1) in row order. ws (B, splits, 2, G) holds the
@@ -333,54 +295,12 @@ gn_moments_kernel(const T* __restrict__ x, float* __restrict__ ws, float* __rest
   if (tid == 0) counters[b] = 0u;
 }
 
-template <int VEC, bool SILU>
-__device__ __forceinline__ void normalise(float (&v)[VEC], const float (&mean)[VEC], const float (&inv)[VEC],
-                                          const float (&sc)[VEC], const float (&bi)[VEC]) {
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    float a = (v[j] - mean[j]) * inv[j];
-    a = a * sc[j] + bi[j];
-    v[j] = SILU ? a * (1.f / (1.f + expf(-a))) : a;
-  }
-}
-
 // K9's apply launch over the moments launch's slices and threads
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(512)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats, const float* __restrict__ scale,
                 const float* __restrict__ bias, T* __restrict__ y, long long rows, int c, int splits, int rgroups) {
-  constexpr int VEC = Piece<T>::VEC;
-  const int pieces = c / VEC;
-  const int tid = threadIdx.x, rg = tid / pieces, c0 = (tid % pieces) * VEC;
-  const int si = blockIdx.x, b = blockIdx.y;
-  const long long r0 = rows * si / splits, r1 = rows * (si + 1) / splits;
-  const float* st = stats + (long long)b * 2 * c;
-  float mean[VEC], inv[VEC], sc[VEC], bi[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    mean[j] = st[c0 + j];
-    inv[j] = st[c + c0 + j];
-    sc[j] = scale[c0 + j];
-    bi[j] = bias[c0 + j];
-  }
-  const long long base = (long long)b * rows * c + c0;
-  long long r = r0 + rg;
-  for (; r + (K9_UNROLL - 1) * rgroups < r1; r += K9_UNROLL * rgroups) {
-    float v[K9_UNROLL][VEC];
-#pragma unroll
-    for (int u = 0; u < K9_UNROLL; ++u) Piece<T>::load(x + base + (r + u * rgroups) * c, v[u]);
-#pragma unroll
-    for (int u = 0; u < K9_UNROLL; ++u) {
-      normalise<VEC, SILU>(v[u], mean, inv, sc, bi);
-      Piece<T>::store(y + base + (r + u * rgroups) * c, v[u]);
-    }
-  }
-  for (; r < r1; r += rgroups) {
-    float v[VEC];
-    Piece<T>::load(x + base + r * c, v);
-    normalise<VEC, SILU>(v, mean, inv, sc, bi);
-    Piece<T>::store(y + base + r * c, v);
-  }
+  apply_slice<T, SILU>(x, stats, scale, bias, y, rows, c, splits, rgroups);
 }
 
 template <typename T>

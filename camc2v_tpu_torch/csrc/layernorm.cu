@@ -8,13 +8,15 @@
 // to x's dtype.
 //
 // Bound on the H100 by HBM bytes: x read once and y written once (no
-// matmul). The TPU kernel moved (rows, C) tiles through VMEM; here one warp
-// owns one row (C <= a few thousand at every model site) and reads it
-// coalesced as channel pairs. Eight rows per 256-thread block.
+// matmul). The TPU kernel moved (rows, C) tiles through VMEM; here a row is
+// held in the registers of the few lanes that own it (a power of two, by
+// the row's 16-byte pieces: 8 lanes at C = 320 bf16, 32 at 1280), read and
+// written with 16-byte accesses.
 #include "layernorm.cuh"
 
 // x, y (rows, c) contiguous, bf16 (is_bf16) or f32; scale, bias (c,) f32;
-// c even (the wrapper checks).
+// all on 16-byte boundaries; c whole 16-byte pieces, at most 512 of them
+// (the wrapper checks).
 extern "C" int ln_forward(const void* x, const void* scale, const void* bias, void* y, long long rows, int c,
                           float eps, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -6,14 +6,18 @@ computes per (sample, group) f32 statistics over every spatial position and
 the group's channels, with the exact two-pass variance, then applies
 scale/bias and the optional SiLU.
 
-On the H100 the op is bound by HBM bytes: three reads of x (sum, squared
-deviation, apply) and one write. The TPU kernel kept a whole sample in VMEM
-(its 6 MB `_MAX_VMEM_BYTES` bound); a Hopper block cannot, so the kernel
-splits each sample's rows over many blocks (coalesced rows of all C
-channels), writes per-(sample, split, group) partial sums to a small f32
-workspace, and every later launch re-reduces those partials. This covers
-every GroupNorm32 site of the model, 4-D and 5-D, the VAE's 256x256 maps
-included.
+On the H100 the op is bound by HBM bytes (x read once, y written once).
+The TPU kernel kept a whole sample in VMEM; a Hopper block holds at most
+227 KB, so `norm_plan` cuts each sample's rows into slices, one block's
+shared memory each. Every block runs a local two-pass over its slice and
+the slices' (count, mean, M2) merge by Chan's formula in slice order
+(bit-identical on repeat). Where a sample fits a cluster of at most 8
+blocks (every 4-D UNet site) K1 is one launch: the cluster's blocks read
+each other's group sums through distributed shared memory and normalise
+their slices from shared memory, so x is read once. Larger samples (the
+5-D sites down to ds4, the VAE's maps) take two launches: statistics,
+whose last block per sample merges the slices on the card (as K9), then
+K9's apply kernel.
 
 Training: the seam's gradient is the vector-Jacobian product of the plain
 twin recomputed from the saved input (`ops.recompute_grad`), the JAX
@@ -75,13 +79,6 @@ def group_norm_plain(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
     return y.reshape(x.shape).to(orig_dtype)
 
 
-def _splits(n: int, rows: int) -> int:
-    """Row blocks per sample: about 4 blocks per SM over the 132 SMs, with at
-    least 32 rows each."""
-    want = max(1, (4 * 132 + n - 1) // n)
-    return max(1, min(want, rows // 32))
-
-
 def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False,
                      kernel: bool = True):
     """GroupNorm over (N, ..., C): stats per (sample, group) over all middle
@@ -94,33 +91,38 @@ def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
 
 
 def _launch(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
-    """K1 on the card (the wrapper's checks, then the ctypes launch)."""
+    """K1 on the card: the wrapper's checks, the plan, one ctypes call of
+    one launch (cluster path) or two (statistics, apply)."""
     if not x.is_cuda:
         raise ValueError(f"group_norm_fused: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"group_norm_fused: dtype {x.dtype} (needs bfloat16 or float32)")
-    if not x.is_contiguous():
-        raise ValueError("group_norm_fused: x must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % K9_PIECE_BYTES:
+        raise ValueError("group_norm_fused: x must be contiguous and start on a 16-byte boundary")
     n, c = x.shape[0], x.shape[-1]
-    if c % num_groups or c % 2:
-        raise ValueError(f"group_norm_fused: C={c} must be even and divisible by groups={num_groups}")
-    rows = x.numel() // (n * c)
-    scale = scale.float().contiguous()
-    bias = bias.float().contiguous()
-    if scale.shape != (c,) or bias.shape != (c,) or scale.device != x.device:
+    if c % num_groups:
+        raise ValueError(f"group_norm_fused: C={c} must be divisible by groups={num_groups}")
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.float().contiguous()
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    if scale.shape != (c,) or bias.shape != (c,) or scale.device != x.device or bias.device != x.device:
         raise ValueError("group_norm_fused: scale/bias must be (C,) on x's device")
-    split = _splits(n, rows)
+    rows = x.numel() // (n * c)
+    plan = norm_plan(n, rows, c, x.element_size(), num_groups, sm_count(x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     y = torch.empty_like(x)
-    ws = torch.empty(2 * n * split * num_groups, device=x.device, dtype=torch.float32)
-    lib = _build.load("groupnorm")
-    fn = lib.gn_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(),
-             n, rows, c, num_groups, split, float(eps), int(silu),
-             int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "groupnorm")
+    ws = stats = counters = 0
+    if not plan.cluster:
+        parts = n * plan.slices * (3 * num_groups + 1)
+        scratch, count = _stream_scratch(x.device, stream, n, parts + n * 2 * c)
+        ws, stats, counters = scratch.data_ptr(), scratch.data_ptr() + 4 * parts, count.data_ptr()
+    apply = plan.apply or TemporalPlan(0, 0, 0)
+    fn = _build.function("groupnorm", "gn_forward", _K1_ARGS)
+    err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws, stats, counters, n, rows, c,
+             num_groups, int(plan.cluster), plan.slices, plan.rgroups, apply.splits, apply.rgroups, float(eps),
+             int(silu), int(x.dtype == torch.bfloat16), stream)
+    _build.check(err, "group_norm_fused")
     ops.LAUNCHES["groupnorm"] += 1
     return y
 
@@ -300,16 +302,96 @@ def slice_rows(rows: int, splits: int, si: int) -> tuple[int, int]:
     return rows * si // splits, rows * (si + 1) // splits
 
 
+# K1's plan: one launch on a cluster where a sample fits one, else two
+K1_THREADS = 512              # a block's most threads (csrc/groupnorm.cu THREADS_MAX)
+K1_CHUNKS = 8                 # bulk copies (each on its mbarrier) per slice (csrc CHUNKS)
+K1_SMEM_MAX = 232448          # a block's shared memory on the H100
+K1_STATIC_SMEM = 128          # what the kernels' own shared variables may take of it (csrc STATIC_SMEM)
+K1_MAX_CLUSTER = 8            # the portable cluster size
+K1_BLOCKS_PER_SM = 2          # the statistics launch's blocks an SM
+K1_BLOCK_SMEM = (233472 // K1_BLOCKS_PER_SM - 1024 - K1_STATIC_SMEM)  # an SM's 228 KB, 1 KB reserved a block
+K1_CLUSTER_FILL = 7 / 8       # the share of an SM's block slots whole clusters can take (GPC packing)
+
+
+class NormPlan(NamedTuple):
+    cluster: bool   # one launch on clusters of `slices` blocks (else statistics, then apply)
+    slices: int     # blocks per sample holding its rows (slice_rows)
+    rgroups: int    # row groups of a block
+    pieces: int     # 16-byte pieces of a row (threads per row group)
+    smem: int       # a block's dynamic shared memory, bytes
+    apply: TemporalPlan | None  # the apply launch's grid (two launches only)
+
+
+def k1_smem(max_rows: int, c: int, elem: int, rgroups: int, groups: int) -> int:
+    """A K1 block's dynamic shared memory (csrc/groupnorm.cu `make_params`):
+    its slice of at most `max_rows` rows, the row groups' per-channel sums,
+    the slice's statistics (3 G + 1 floats) and the cluster's K1_MAX_CLUSTER
+    of them, the (2, G) group mean and inverse std, and 8 bytes per chunk's
+    barrier."""
+    gstat_end = max_rows * c * elem + rgroups * c * 4 + ((1 + K1_MAX_CLUSTER) * (3 * groups + 1) + 2 * groups) * 4
+    return -(-gstat_end // 8) * 8 + 8 * K1_CHUNKS
+
+
+def _cluster_fits(n: int, k: int, smem: int, sms: int) -> bool:
+    """n clusters of k blocks of `smem` bytes run at once: within
+    K1_CLUSTER_FILL of the card's block slots (two an SM where the shared
+    memory lets two share one, else one)."""
+    per_sm = K1_BLOCKS_PER_SM if smem <= K1_BLOCK_SMEM else 1
+    return smem + K1_STATIC_SMEM <= K1_SMEM_MAX and n * k <= per_sm * sms * K1_CLUSTER_FILL
+
+
+@functools.lru_cache(maxsize=None)
+def norm_plan(n: int, rows: int, c: int, elem: int, groups: int, sms: int) -> NormPlan:
+    """K1's launch for n samples of `rows` rows of c channels of `elem`
+    bytes in `groups` groups on `sms` SMs. One launch where a cluster of at
+    most K1_MAX_CLUSTER blocks holds a sample and the n clusters run at
+    once (`_cluster_fits`): the smallest cluster size that puts the launch
+    on at least half the SMs (more blocks add exchange and barrier time and
+    no bandwidth: at half the SMs the card's memory is busy), or the largest
+    that fits. Else the statistics launch on slices of at most
+    K1_BLOCK_SMEM, as few as that and half the SMs allow (the last block's
+    merge reads every slice), in whole waves of K1_BLOCKS_PER_SM blocks an
+    SM where they take more than one, then K9's apply."""
+    row = c * elem
+    pieces = row // K9_PIECE_BYTES
+    if row % K9_PIECE_BYTES or not 0 < pieces <= K1_THREADS or c % groups:
+        raise ValueError(f"group_norm_fused: C={c} must fill whole 16-byte pieces, at most {K1_THREADS}, "
+                         f"in {groups} groups")
+    if groups > 32:
+        raise ValueError(f"group_norm_fused: {groups} groups (at most 32: a lane each in the merge)")
+    rgroups = K1_THREADS // pieces
+
+    def smem(slices):
+        return k1_smem(-(-rows // slices), c, elem, rgroups, groups)
+
+    fits = [k for k in range(1, min(K1_MAX_CLUSTER, rows) + 1) if _cluster_fits(n, k, smem(k), sms)]
+    if fits:
+        slices = next((k for k in fits if 2 * n * k >= sms), fits[-1])
+    else:
+        kmin = -(-rows // ((K1_BLOCK_SMEM - k1_smem(0, c, elem, rgroups, groups)) // row))
+        slots = K1_BLOCKS_PER_SM * sms
+        slices = max(kmin, -(-sms // (2 * n)))
+        if n * slices > slots:  # whole waves
+            slices = -(-n * slices // slots) * slots // n
+        slices = min(rows, slices)
+    if rows * slices >= 2 ** 31:
+        raise ValueError(f"group_norm_fused: {rows} rows exceed what a launch takes")
+    return NormPlan(bool(fits), slices, rgroups, pieces, smem(slices),
+                    None if fits else temporal_plan(n, rows, c, elem, sms))
+
+
 _scratch: dict = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TEMPORAL_ARGS = [_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 4 + [_F, _I, _I, _P]
+_K1_ARGS = [_P] * 7 + [_I, ctypes.c_longlong] + [_I] * 7 + [_F, _I, _I, _P]
 
 
-def _temporal_scratch(device, stream: int, b: int, floats: int):
-    """The stream's K9 scratch, kept across calls (stream order makes each
-    call's use of it end before the next one's begins): f32 workspace and
-    stats, and the samples' arrival counters, zeroed once and left zero by
-    every call. Grown when a call needs more."""
+def _stream_scratch(device, stream: int, b: int, floats: int):
+    """The stream's scratch of K1's and K9's two-launch paths, kept across
+    calls (stream order makes each call's use of it end before the next
+    one's begins): f32 workspace and stats, and the samples' arrival
+    counters, zeroed once and left zero by every call. Grown when a call
+    needs more."""
     key = (device, stream)
     ws, counters = _scratch.get(key, (None, None))
     if ws is None or ws.numel() < floats or counters.numel() < b:
@@ -329,7 +411,7 @@ def _launch_temporal(x, scale, bias, *, num_groups: int, eps: float, silu: bool)
     plan = temporal_plan(b, rows, c, x.element_size(), sm_count(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     parts = b * plan.splits * 2 * num_groups
-    ws, counters = _temporal_scratch(x.device, stream, b, parts + b * 2 * c)
+    ws, counters = _stream_scratch(x.device, stream, b, parts + b * 2 * c)
     y = torch.empty_like(x)
     fn = _build.function("groupnorm_twophase", "gn_temporal", _TEMPORAL_ARGS)
     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * parts,

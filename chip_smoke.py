@@ -56,7 +56,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               beside the twin, the backward alone of scaled dot-product
               attention (with the materialised bool mask at each K7 site,
               at each K5 site) and the bound (10*D operations per query-key
-              pair, per set mask bit for K7). K9 (the routes' GroupNorm)
+              pair, per set mask bit for K7). K1 at every GroupNorm site
+              of the UNet (4-D per frame with CFG batched, N = 32, and at
+              batch 1, N = 16; 5-D temporal at batch 2 and 1; every level)
+              and the VAE's 256^2 map: against the twin with SiLU on and
+              off, the same bits on a repeat, its kernels per call from the
+              profiler (one on the cluster path, statistics and apply on
+              the two-launch path), events, host enqueue and device time
+              per site beside F.group_norm and the bound
+              (smoke_out/groupnorm_sites.json); K8 likewise at the UNet's
+              transformer widths and the CLIP towers' (one `ln_rows` per
+              call; smoke_out/layernorm_sites.json). K9 (the routes' GroupNorm)
               and K6p (the routes' epipolar attention on penalties): events,
               host enqueue and profiler device time per call beside the twin,
               the library call and the bound; K9 must run exactly its two
@@ -65,7 +75,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
-              profiled at batch 1 (device time by kernel, smoke_out/).
+              profiled at batch 1 (device time by kernel, K1's and K3 + K4's
+              apart, smoke_out/).
   5. generate DynamiCrafter-256 and CamContextI2V-256 (2 context frames, the
               bench camera trajectory) at full width, seeded random weights,
               bf16 on cuda:0, built by `presets.build`: three requests each
@@ -485,6 +496,61 @@ def epipolar_checks(dev, g) -> dict:
                 bound_by=s["bound_by"], library_ms=s["sdpa_ms"], sites=site_ms)
 
 
+GN_SITES = ([(f"4-D ds{d} N={n}", (n, h, h, c), 1e-5) for n in (32, 16)
+             for d, h, c in ((1, 32, 320), (2, 16, 640), (4, 8, 1280), (8, 4, 1280))]
+            + [(f"5-D ds{d} B={b}", (b, 16, h, h, c), 1e-6) for b in (2, 1)
+               for d, h, c in ((1, 32, 320), (2, 16, 640), (4, 8, 1280), (8, 4, 1280))]
+            + [("VAE 256^2", (16, 256, 256, 128), 1e-6)])
+GN_KERNELS = {True: {"gn_cluster_kernel": 1.0}, False: {"gn_stats_kernel": 1.0, "gn_norm_apply_kernel": 1.0}}
+
+
+def groupnorm_sites(dev, randn, f32n) -> dict:
+    """K1 at GN_SITES (see kernel_checks); the (32, 32, 32, 320) site is the
+    kernels line's. Sites' numbers in smoke_out/groupnorm_sites.json."""
+    from camc2v_tpu_torch.ops import groupnorm as gn
+    from camc2v_tpu_torch.ops._gemm import sm_count
+
+    bf = torch.bfloat16
+    errs, sites = [], {}
+    for label, shape, eps in GN_SITES:
+        x = randn(*shape, scale=2.0) + 0.5
+        s, b = f32n(shape[-1], scale=0.2, mean=1.0), f32n(shape[-1], scale=0.2)
+        n, c = shape[0], shape[-1]
+        plan = gn.norm_plan(n, x.numel() // (n * c), c, 2, 32, sm_count(x.device))
+        for silu in (True, False):
+            kw = dict(num_groups=32, eps=eps, silu=silu)
+            got = gn.group_norm_fused(x, s, b, **kw)
+            errs.append(_compare(f"groupnorm {label} {shape} silu={silu} ({'cluster' if plan.cluster else 'two'}"
+                                 f" x{plan.slices})", got, gn.group_norm_plain(x, s, b, **kw)))
+            if not torch.equal(got, gn.group_norm_fused(x, s, b, **kw)):
+                _fail(f"groupnorm {label}: two runs on the same input give different bits")
+        run = lambda: gn.group_norm_fused(x, s, b, eps=eps, silu=True)  # noqa: E731
+        per_call = _kernels_per_call(run)
+        if per_call != GN_KERNELS[plan.cluster]:
+            _fail(f"groupnorm {label}: one call ran {per_call}, not {GN_KERNELS[plan.cluster]}")
+        t = _time_kernel(run)
+        xn = x.reshape(n, -1, c).transpose(1, 2)  # (N, C, positions), the library's layout
+        sites[label] = dict(shape=shape, path="cluster" if plan.cluster else "two launches", slices=plan.slices,
+                            smem=plan.smem, kernels_per_call=per_call, ms=t["ms"], host_ms=t["host_ms"],
+                            device_ms=t["device_ms"],
+                            library_ms=_time_ms(lambda: torch.nn.functional.group_norm(xn, 32, s.to(bf), b.to(bf), eps)),
+                            **_bound(2 * _nbytes(x) + _nbytes(s, b), 0))
+        r = sites[label]
+        print(f"  time groupnorm {label} {shape} + SiLU ({r['path']}, {plan.slices} blocks a sample): {r['ms']:.4f} ms "
+              f"(host {r['host_ms']:.4f}, device {_fmt(r['device_ms'])}), F.group_norm {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms", flush=True)
+    print("  groupnorm: two runs bit-identical and the planned kernels per call at every site", flush=True)
+    with open(os.path.join(OUT_DIR, "groupnorm_sites.json"), "w") as f:
+        json.dump(sites, f, indent=1)
+    main = sites["4-D ds1 N=32"]
+    x = randn(*main["shape"])
+    s, b = f32n(320, scale=0.2, mean=1.0), f32n(320, scale=0.2)
+    plain = _time_ms(lambda: gn.group_norm_plain(x, s, b, silu=True))
+    return dict(max_abs_err=max(errs), ms=main["ms"], host_ms=main["host_ms"], device_ms=main["device_ms"],
+                plain_ms=plain, twin_ms=plain, library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], sites=sites)
+
+
 @torch.no_grad()
 def kernel_checks(dev) -> dict:
     from camc2v_tpu_torch import ops
@@ -500,27 +566,12 @@ def kernel_checks(dev) -> dict:
     f32n = lambda *s, scale=1.0, mean=0.0: torch.randn(*s, generator=g, device=dev) * scale + mean  # noqa: E731
     res = {}
 
-    # K1: UNet 4-D (frames of the ds1 level), 5-D temporal at ds8, VAE 256^2
-    errs = []
-    for label, shape, silu, eps in [
-        ("4-D silu", (32, 32, 32, 320), True, 1e-5), ("4-D", (32, 32, 32, 320), False, 1e-5),
-        ("5-D silu", (2, 16, 4, 4, 1280), True, 1e-6), ("5-D", (2, 16, 4, 4, 1280), False, 1e-6),
-        ("VAE 256^2 silu", (16, 256, 256, 128), True, 1e-6),
-    ]:
-        x = randn(*shape, scale=2.0) + 0.5
-        s, b = f32n(shape[-1], scale=0.2, mean=1.0), f32n(shape[-1], scale=0.2)
-        kw = dict(num_groups=32, eps=eps, silu=silu)
-        errs.append(_compare(f"groupnorm {label} {shape}", gn.group_norm_fused(x, s, b, **kw),
-                             gn.group_norm_plain(x, s, b, **kw)))
-    x = randn(32, 32, 32, 320)
-    s, b = f32n(320, scale=0.2, mean=1.0), f32n(320, scale=0.2)
-    plain = _time_ms(lambda: gn.group_norm_plain(x, s, b, silu=True))
-    # the library call computes GroupNorm without the SiLU, on the NCHW view
-    xn = x.permute(0, 3, 1, 2)
-    library = _time_ms(lambda: torch.nn.functional.group_norm(xn, 32, s.to(bf), b.to(bf), 1e-5))
-    res["groupnorm"] = dict(max_abs_err=max(errs), ms=_time_ms(lambda: gn.group_norm_fused(x, s, b, silu=True)),
-                            plain_ms=plain, twin_ms=plain, library_ms=library,
-                            **_bound(2 * _nbytes(x) + _nbytes(s, b), 0))
+    # K1 at every GroupNorm site of the UNet (4-D per frame with CFG batched,
+    # N = 32, and at batch 1, N = 16; 5-D temporal at batch 2 and 1, every
+    # level) and the VAE decoder's 256^2 map: against the twin (SiLU on and
+    # off), the same bits twice, the kernels of one call from the profiler
+    # (one on the cluster path, statistics and apply on the other), times
+    res["groupnorm"] = groupnorm_sites(dev, randn, f32n)
 
     # K2: ds1 spatial self-attention, the same with a mask, text cross-attention (Lk=77)
     errs = []
@@ -951,24 +1002,40 @@ def route_kernel_checks(dev) -> dict:
     randn = lambda *s, scale=1.0, mean=0.0: (torch.randn(*s, generator=g, device=dev) * scale + mean)  # noqa: E731
     res = {}
 
-    # K8: a UNet transformer norm at ds1 and the CLIP towers' widths
-    errs = []
-    for label, shape in [("UNet ds1 (32768, 320)", (32768, 320)), ("CLIP vision (1028, 1280)", (1028, 1280)),
+    # K8 at the UNet's transformer widths and the CLIP towers': against the
+    # twin, the same bits twice, one kernel per call, times
+    errs, sites = [], {}
+    for label, shape in [("UNet ds1 (32768, 320)", (32768, 320)), ("UNet ds2 (8192, 640)", (8192, 640)),
+                         ("UNet ds4 (2048, 1280)", (2048, 1280)), ("CLIP vision (1028, 1280)", (1028, 1280)),
                          ("CLIP text (154, 1024)", (154, 1024))]:
         x = randn(*shape, scale=1.5, mean=0.3).to(bf)
         s_, b_ = randn(shape[-1], scale=0.2, mean=1.0), randn(shape[-1], scale=0.2)
-        errs.append(_compare(f"layernorm {label}", ln.layer_norm_fused(x, s_, b_), ln.layer_norm_plain(x, s_, b_)))
+        got = ln.layer_norm_fused(x, s_, b_)
+        errs.append(_compare(f"layernorm {label}", got, ln.layer_norm_plain(x, s_, b_)))
+        if not torch.equal(got, ln.layer_norm_fused(x, s_, b_)):
+            _fail(f"layernorm {label}: two runs on the same input give different bits")
+        per_call = _kernels_per_call(lambda: ln.layer_norm_fused(x, s_, b_))
+        if per_call != {"ln_rows": 1.0}:
+            _fail(f"layernorm {label}: one call ran {per_call}, not one ln_rows")
+        t = _time_kernel(lambda: ln.layer_norm_fused(x, s_, b_))
+        sites[label] = dict(ms=t["ms"], host_ms=t["host_ms"], device_ms=t["device_ms"], lanes=ln.ln_plan(shape[-1], 2).lanes,
+                            library_ms=_time_ms(lambda: torch.nn.functional.layer_norm(x, (shape[-1],), s_.to(bf),
+                                                                                       b_.to(bf), 1e-5)),
+                            **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
+        r = sites[label]
+        print(f"  time layernorm {label}: {r['ms']:.4f} ms (host {r['host_ms']:.4f}, device {_fmt(r['device_ms'])}; "
+              f"{r['lanes']} lanes a row), F.layer_norm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms",
+              flush=True)
+    with open(os.path.join(OUT_DIR, "layernorm_sites.json"), "w") as f:
+        json.dump(sites, f, indent=1)
     x = randn(32768, 320, scale=1.5, mean=0.3).to(bf)
     s_, b_ = randn(320, scale=0.2, mean=1.0), randn(320, scale=0.2)
     plain = _time_ms(lambda: ln.layer_norm_plain(x, s_, b_))
     default = _time_ms(lambda: torch.nn.functional.layer_norm(x.float(), (320,), s_, b_, 1e-5).to(bf))
-    library = _time_ms(lambda: torch.nn.functional.layer_norm(x, (320,), s_.to(bf), b_.to(bf), 1e-5))
-    t8 = _time_kernel(lambda: ln.layer_norm_fused(x, s_, b_))
-    res["layernorm"] = dict(max_abs_err=max(errs), ms=t8["ms"], host_ms=t8["host_ms"], device_ms=t8["device_ms"],
-                            plain_ms=plain, twin_ms=plain, library_ms=library, default_route_ms=default,
-                            **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
-    print(f"  time layernorm (32768, 320): {t8['ms']:.4f} ms (host {t8['host_ms']:.4f}, device "
-          f"{_fmt(t8['device_ms'])})", flush=True)
+    main = sites["UNet ds1 (32768, 320)"]
+    res["layernorm"] = dict(max_abs_err=max(errs), ms=main["ms"], host_ms=main["host_ms"], device_ms=main["device_ms"],
+                            plain_ms=plain, twin_ms=plain, library_ms=main["library_ms"], default_route_ms=default,
+                            bound_ms=main["bound_ms"], bound_by=main["bound_by"], sites=sites)
 
     # K9 and K10 at a 5-D UNet site and the VAE's 256x256 map viewed as (16, 16, 4096, 128)
     errs, errs10 = [], []
@@ -1152,8 +1219,12 @@ def camcontext_unet_check(model, dev) -> dict:
         gemm = {k: parts[k] for k in ("K4 GEMM 1", "K3 QKV + attention", "K3/K4 out GEMM", "row LN pass")}
         print(f"  profile: K3 + K4 (GEMM core and LN pass) {sum(ms for ms, _ in gemm.values()):.3f} ms: "
               f"{ {k: (round(ms, 3), n) for k, (ms, n) in gemm.items()} }", flush=True)
+        k1 = {k: parts[k] for k in ("K1 cluster", "K1 statistics", "K1 apply")}
+        print(f"  profile: K1 {sum(ms for ms, _ in k1.values()):.3f} ms: "
+              f"{ {k: (round(ms, 3), n) for k, (ms, n) in k1.items()} }", flush=True)
     return dict(step_ms=step_ms, host_ms=host_ms, profiled_ms=total, k6_profiled_ms=k6_ms,
-                k6_profiled_calls=k6_calls, k3_k4_profiled_ms={k: ms for k, (ms, _) in gemm.items()})
+                k6_profiled_calls=k6_calls, k3_k4_profiled_ms={k: ms for k, (ms, _) in gemm.items()},
+                k1_profiled_ms={k: ms for k, (ms, _) in k1.items()})
 
 
 def _kernels_by_policy(by_kernel: dict) -> dict:
@@ -1162,13 +1233,16 @@ def _kernels_by_policy(by_kernel: dict) -> dict:
     and K7 (the dq and dk/dv sweeps under each; the shared pre-pass kernel
     is counted apart), and the GEMM core's kernels of K3 and K4 by
     epilogue (the out GEMM and the row LN pass are shared by K3 and K4; the
-    LN pass also by K8)."""
+    LN pass also by K8); K1's three kernels (one launch on the cluster path,
+    statistics and apply on the other)."""
     out = {}
     for name, body, policy in (("K2", "flash_fwd_kernel", "BoolMask"), ("K6", "flash_fwd_kernel", "LineMask"),
                                ("K5", "flash_bwd_d", "BoolMask"), ("K7", "flash_bwd_d", "LineMask"),
                                ("pre-pass", "flash_bwd_prepass", ""), ("K4 GEMM 1", "gemm_kernel", "Geglu"),
                                ("K3 QKV + attention", "gemm_kernel", "QkvAttention"),
-                               ("K3/K4 out GEMM", "gemm_kernel", "BiasResidual"), ("row LN pass", "ln_rows", "")):
+                               ("K3/K4 out GEMM", "gemm_kernel", "BiasResidual"), ("row LN pass", "ln_rows", ""),
+                               ("K1 cluster", "gn_cluster_kernel", ""), ("K1 statistics", "gn_stats_kernel", ""),
+                               ("K1 apply", "gn_norm_apply_kernel", "")):
         hits = [v for k, v in by_kernel.items() if body in k and policy in k]
         out[name] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
     return out
