@@ -5,7 +5,7 @@ Same field names and defaults as the JAX package's dataclasses
 `nn/clip.py::CLIPTextConfig`/`CLIPVisionConfig`,
 `models/dynamicrafter.py::ResamplerConfig`/`DynamiCrafterConfig`,
 `nn/epipolar.py::EpipolarConfig`, `camera/pose_encoder.py::PoseEncoderConfig`,
-`models/camera_base.py::CameraControlConfig`/`CamI2VConfig`,
+`models/camera_base.py::CameraControlConfig`/`MotionCtrlConfig`/`CamI2VConfig`,
 `models/camcontexti2v.py::AdaptorConfig`/`CamContextI2VConfig`), defined
 here again because the port may not import the JAX package. Of the JAX remat
 policies only `remat_policy=None` (save nothing, recompute every block) is
@@ -192,6 +192,14 @@ class CameraControlConfig(DynamiCrafterConfig):
     pose_encoder: Optional[PoseEncoderConfig] = None
     normalize_T0: bool = False
     camera_embedding: str = "plucker"  # or "ray"
+
+
+@dataclasses.dataclass(frozen=True)
+class MotionCtrlConfig(CameraControlConfig):
+    """MotionCtrl's configuration (the yaml reader builds it; the model's
+    `camera_mode='motionctrl'` UNet raises at construction)."""
+
+    pose_dim: int = 12
 
 
 @dataclasses.dataclass(frozen=True)

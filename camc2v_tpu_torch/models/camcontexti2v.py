@@ -16,12 +16,22 @@ materialised densely (the attention seam sends it to K2 on the card).
 Generation (only the cond and context frames VAE-encoded) and training
 (`need_full_z`: all T + N frames encoded, CFG dropout, the adaptor's
 `adaptor_use_mask` phase flag) are ported, cond frame 0. In training the
-adaptor runs on K6 and its gradient on K7. Padded context batches
-(`cond_frames_valid`), the 'max'/'avg' strategies, the Plücker adaptor
-input and cross-normalisation raise.
+adaptor runs on K6 and its gradient on K7. The 'max'/'avg' strategies, the
+Plücker adaptor input and cross-normalisation raise.
+
+Padded context batches (the data path pads 1-4 context frames to 4 and
+writes `cond_frames_valid`, `data/realestate10k.py::RealEstate10K.collate`)
+give the unpadded batch's numbers, as in the JAX package: on the adaptor's
+kernel path the padded frames' epipolar lines are NaN, so every distance
+test fails, their keys are hidden and their tiles skipped (K6, K7), while
+the register tokens stay visible; on the dense path their key columns are
+cleared; and `c_crossattn_mask` hides their image tokens from the UNet's
+image cross-attention (K2, K5).
 
 Batch keys on top of CamI2V's:
-  "cond_frames": (B, N, H, W, 3) context frames, "RT_cond": (B, N, 4, 4).
+  "cond_frames": (B, N, H, W, 3) context frames, "RT_cond": (B, N, 4, 4);
+  optional "cond_frames_valid": (B, N) bool, False for a padded slot (zero
+  frames, identity poses).
 """
 
 from __future__ import annotations
@@ -70,19 +80,26 @@ class CamContextI2V(CamI2V):
                 and (hw % ef.BLOCK_K == 0 or hw % 256 == 0))
 
     def latent_condition(self, batch: dict, z_cond: torch.Tensor, z_add: torch.Tensor,
-                         cond_frame_index: torch.Tensor, adaptor_use_mask: Optional[bool] = None) -> torch.Tensor:
+                         cond_frame_index: torch.Tensor, adaptor_use_mask: Optional[bool] = None,
+                         ctx_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, h, w, 4) c_concat of the latent branch from the cond-frame
         latent z_cond (B, h, w, 4) and the context latents z_add (B, N, h, w, 4).
-        adaptor_use_mask: the training phase flag (None: the config's)."""
+        adaptor_use_mask: the training phase flag (None: the config's);
+        ctx_valid: (B, N) bool, False for a padded context slot."""
         cfg: CamContextI2VConfig = self.config
         b, n_ctx, hl, wl, c = z_add.shape
         t, hw = cfg.video_length, hl * wl
         z_tokens = torch.cat([z_cond[:, None], z_add], dim=1).reshape(b, (1 + n_ctx) * hw, c)
         args = (batch["camera_intrinsics"], batch["RT"], batch["RT_cond"], cond_frame_index)
         masking = cfg.adaptor.use_mask if adaptor_use_mask is None else adaptor_use_mask
+        # (B, 1 + N) validity of the key frames: the cond frame always
+        frame_valid = None if ctx_valid is None else torch.cat(
+            [torch.ones(b, 1, dtype=torch.bool, device=ctx_valid.device), ctx_valid], dim=1)
         if self._adaptor_kernel_ok(hw, masking):
             blk = ef.BLOCK_K if hw % ef.BLOCK_K == 0 else hw
             lines = ef.epipolar_lines(G.conditional_fundamental(*args), hl, wl, 8)
+            if frame_valid is not None:  # NaN lines hide a padded frame's keys and empty its tiles
+                lines = torch.where(frame_valid[:, None, :, None], lines, torch.nan)
             tiles = ef.kernel_tile_map(lines, 1 + n_ctx, hl, wl, 8)
             img_cat = self.adaptor(z_tokens, use_mask=True, lines=lines, geom=(1 + n_ctx, hl, wl, 8, blk),
                                    tile_any=tiles)
@@ -91,7 +108,16 @@ class CamContextI2V(CamI2V):
             if cfg.multi_cond_strategy == "token_concat_latent_epipolar" and cfg.adaptor.use_mask:
                 H, W = batch["video"].shape[2:4]
                 mask = G.conditional_epipolar_mask(*args, H, W, downsample=8, config=cfg.epipolar)
-            img_cat = self.adaptor(z_tokens, mask, use_mask=adaptor_use_mask)
+            use_mask = adaptor_use_mask
+            if frame_valid is not None:
+                # validity columns: a padded frame's keys are never visible (a
+                # mask-freeze phase drops the epipolar part only)
+                token_valid = frame_valid.repeat_interleave(hw, dim=1)  # (B, (1 + N) * hw)
+                lq = cfg.adaptor.num_queries * cfg.adaptor.video_length
+                base = mask if masking and mask is not None else torch.ones(
+                    b, lq, z_tokens.shape[1], dtype=torch.bool, device=z_tokens.device)
+                mask, use_mask = base & token_valid[:, None, :], True
+            img_cat = self.adaptor(z_tokens, mask, use_mask=use_mask)
         img_cat = img_cat.reshape(b, t, hl, wl, -1)
         if self.zero_conv is not None:
             img_cat = z_cond[:, None] + self.zero_conv(img_cat)
@@ -104,9 +130,9 @@ class CamContextI2V(CamI2V):
         flags as in `DynamiCrafter.prepare_batch`. need_full_z encodes the
         T target frames and the N context frames in one VAE call."""
         cfg: CamContextI2VConfig = self.config
-        if "cond_frames_valid" in batch:
-            raise NotImplementedError("CamContextI2V: padded context frames (cond_frames_valid) are not ported")
         video, cond_frames = batch["video"], batch.get("cond_frames")
+        ctx_valid = batch.get("cond_frames_valid")
+        ctx_valid = None if ctx_valid is None or cond_frames is None else ctx_valid.bool()
         b, t, H, W = video.shape[:4]
         cond_frame_index = torch.zeros(b, dtype=torch.long, device=video.device)
         camera = self.camera_condition(batch, cond_frame_index, perturb_noise=perturb_noise)
@@ -123,7 +149,7 @@ class CamContextI2V(CamI2V):
             z_cond, z_add = z_sel[:, 0], z_sel[:, 1:]
             z = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
         if latent:
-            c_concat = self.latent_condition(batch, z_cond, z_add, cond_frame_index, adaptor_use_mask)
+            c_concat = self.latent_condition(batch, z_cond, z_add, cond_frame_index, adaptor_use_mask, ctx_valid)
         else:
             c_concat = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
 
@@ -142,8 +168,15 @@ class CamContextI2V(CamI2V):
             cond["_uncond"] = {"img_emb": uc_img.expand(b, -1, -1), "prompt_emb": null_prompt.expand(b, -1, -1)}
         else:
             img_emb = self.embed_images(imgs)
-        img_emb = img_emb.reshape(b, (1 + n_ctx) * img_emb.shape[1], -1)
+        l_tok = img_emb.shape[1]
+        img_emb = img_emb.reshape(b, (1 + n_ctx) * l_tok, -1)
         cond["c_concat"] = c_concat
         cond["c_crossattn"] = torch.cat([prompt_emb, img_emb], dim=1)
+        if ctx_valid is not None and n_ctx:
+            # token validity of the UNet's image cross-attention: a padded frame's tokens hidden
+            frame_valid = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=video.device), ctx_valid], dim=1)
+            cond["c_crossattn_mask"] = torch.cat([
+                torch.ones(b, prompt_emb.shape[1], dtype=torch.bool, device=video.device),
+                frame_valid.repeat_interleave(l_tok, dim=1)], dim=1)
         cond["camera"] = camera
         return z, cond

@@ -179,8 +179,8 @@ class DynamiCrafter(nn.Module):
             device = cond["c_concat"].device
             uc_prompt = self.encode_text(self._null_tokens(device)).expand(batch_size, -1, -1)
             uc_img = self.embed_images(torch.zeros(batch_size, *image_hw, 3, device=device))
-        uc = {k: v for k, v in cond.items() if k != "_uncond"}
-        uc["c_crossattn"] = torch.cat([uc_prompt, uc_img], dim=1)
+        uc = {k: v for k, v in cond.items() if k not in ("_uncond", "c_crossattn_mask")}
+        uc["c_crossattn"] = torch.cat([uc_prompt, uc_img], dim=1)  # single-frame: never padded
         return uc
 
     def get_fs(self, batch: dict):
@@ -222,11 +222,13 @@ class DynamiCrafter(nn.Module):
         loss = loss_simple.mean()
         return loss, {"loss_simple": loss_simple.mean().detach(), "loss": loss.detach()}
 
-    def training_loss(self, batch: dict, generator: torch.Generator, **prepare_kwargs) -> tuple[torch.Tensor, dict]:
+    def training_loss(self, batch: dict, generator: torch.Generator, *, deterministic: bool = False,
+                      **prepare_kwargs) -> tuple[torch.Tensor, dict]:
         """The train-step loss (reference shared_step, camcontexti2v.py:779-793):
         conditioning with CFG dropout and every frame encoded, a uniform
         timestep and standard-normal noise per sample (plus the offset noise
-        of `noise_strength`), the UNet in training mode. `prepare_kwargs`
+        of `noise_strength`), the UNet in training mode (`deterministic=True`:
+        dropout and block remat off, the validation loss). `prepare_kwargs`
         carries per-phase flags (CamContextI2V's `adaptor_use_mask`)."""
         cfg = self.config
         z, cond = self.prepare_batch(batch, generator, random_uncond=True, need_full_z=True, **prepare_kwargs)
@@ -236,7 +238,7 @@ class DynamiCrafter(nn.Module):
         if cfg.noise_strength > 0:
             offset = torch.randn((b, z.shape[1], 1, 1, z.shape[-1]), generator=generator, device=z.device)
             noise = noise + cfg.noise_strength * offset
-        return self.p_losses(z, cond, t, noise, self.get_fs(batch))
+        return self.p_losses(z, cond, t, noise, self.get_fs(batch), deterministic=deterministic)
 
     def _pad_uncond_for_fusion(self, cond: dict, uc: dict) -> Optional[tuple[dict, dict]]:
         """(cond, uc) with the shorter single-frame-set uncond context padded

@@ -23,22 +23,29 @@ Training: the seam's gradient is the vector-Jacobian product of the plain
 twin recomputed from the saved input (`ops.recompute_grad`), the JAX
 `_group_norm` custom VJP; K1 has no backward kernel.
 
-K9 and K10 (`csrc/groupnorm_twophase.cu`) replace the Pallas kernels
+K9 (`csrc/groupnorm_twophase.cu`) replaces the Pallas kernels
 `_gn_row_moments_kernel` + `_gn_apply_kernel` (entry
-`group_norm_fused_temporal`) and `_gn_big_kernel` (entry
-`group_norm_fused_big`): GroupNorm with statistics per (sample, group) over
-a (B, T, ..., C) map, from f32 raw moments with the single-pass variance
-max(E[x^2] - E[x]^2, 0), a different numeric from K1's two-pass one. K9 is
-one ctypes call that enqueues two launches and nothing between them: the
-moments launch sums slices of each sample's rows and its last block per
-sample combines the slices' partials into the (B, 2, C) mean and inverse
-std on the card (the JAX package runs that combine as small XLA ops between
-its two kernels); the apply launch normalises. Its grid follows
-`temporal_plan`, sized from the SM count. K10 is the same function in one
-cooperative launch. Their plain twin (`group_norm_temporal_plain`) has the
-JAX numerics: per-row f32 moments, the one-hot group combine, the clamp.
-Their gradient recomputes the exact two-pass `group_norm_plain` (the JAX
-`_gn_bwd`).
+`group_norm_fused_temporal`): GroupNorm with statistics per (sample, group)
+over a (B, T, ..., C) map, from f32 raw moments with the single-pass
+variance max(E[x^2] - E[x]^2, 0), a different numeric from K1's two-pass
+one. K9 is one ctypes call that enqueues two launches and nothing between
+them: the moments launch sums slices of each sample's rows and its last
+block per sample combines the slices' partials into the (B, 2, C) mean and
+inverse std on the card (the JAX package runs that combine as small XLA ops
+between its two kernels); the apply launch normalises. Its grid follows
+`temporal_plan`, sized from the SM count. Its plain twin
+(`group_norm_temporal_plain`) has the JAX numerics: per-row f32 moments, the
+one-hot group combine, the clamp. Its gradient recomputes the exact
+two-pass `group_norm_plain` (the JAX `_gn_bwd`).
+
+K10 replaces the Pallas kernel `_gn_big_kernel` (entry
+`group_norm_fused_big`): the same function over (B, T, ..., C), which the
+TPU computed in one call for samples too large for VMEM. On the card it is
+K1 on the (B, T*HW, C) view, by K1's plan (one cluster launch where a
+sample fits 8 blocks, else statistics + apply): K1's exact two-pass variance
+where the JAX kernel takes the single-pass one, so its plain twin is K1's,
+`group_norm_plain` (within 1e-5 of the JAX kernel in f32 on the CPU tests'
+inputs).
 
 The model takes K9 only behind `CAMC2V_GN_TEMPORAL=1` (5-D temporal norms)
 and `CAMC2V_GN_BIG4D=1` (large 4-D maps viewed as (N, s, H/s*W, C)), at the
@@ -90,9 +97,10 @@ def group_norm_fused(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5,
     return ops.recompute_grad(run, twin, x, scale, bias)
 
 
-def _launch(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
+def _launch(x, scale, bias, *, num_groups: int, eps: float, silu: bool, counter: str = "groupnorm"):
     """K1 on the card: the wrapper's checks, the plan, one ctypes call of
-    one launch (cluster path) or two (statistics, apply)."""
+    one launch (cluster path) or two (statistics, apply); counted under
+    `ops.LAUNCHES[counter]` (K10 runs it as "groupnorm_big")."""
     if not x.is_cuda:
         raise ValueError(f"group_norm_fused: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -123,7 +131,7 @@ def _launch(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
              num_groups, int(plan.cluster), plan.slices, plan.rgroups, apply.splits, apply.rgroups, float(eps),
              int(silu), int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "group_norm_fused")
-    ops.LAUNCHES["groupnorm"] += 1
+    ops.LAUNCHES[counter] += 1
     return y
 
 
@@ -244,12 +252,16 @@ def group_norm_fused_temporal(x, scale, bias, *, num_groups: int = 32, eps: floa
 
 
 def group_norm_fused_big(x, scale, bias, *, num_groups: int = 32, eps: float = 1e-5, silu: bool = False):
-    """The same function as `group_norm_fused_temporal` in one launch (K10)
-    on the card; its plain twin on the CPU."""
+    """GroupNorm of (B, T, ..., C) with statistics per (B, group) over
+    (T, ...), the function of `group_norm_fused_temporal` (K10): on the card
+    K1 over the (B, T*HW, C) view by K1's plan, on the CPU K1's twin."""
+    if x.dim() < 3:
+        raise ValueError(f"group_norm_fused_big: x {tuple(x.shape)} needs (B, T, ..., C)")
     kw = dict(num_groups=num_groups, eps=eps, silu=silu)
-    on = ops.on_card(x, "group_norm_fused_big")
-    run = functools.partial(_launch_big, **kw) if on else functools.partial(group_norm_temporal_plain, **kw)
-    return ops.recompute_grad(run, functools.partial(group_norm_plain, **kw), x, scale, bias)
+    twin = functools.partial(group_norm_plain, **kw)
+    run = functools.partial(_launch, counter="groupnorm_big", **kw) if ops.on_card(x, "group_norm_fused_big") \
+        else twin
+    return ops.recompute_grad(run, twin, x.contiguous(), scale, bias)
 
 
 def _twophase_args(x, scale, bias, num_groups: int, what: str):
@@ -419,30 +431,4 @@ def _launch_temporal(x, scale, bias, *, num_groups: int, eps: float, silu: bool)
              int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "group_norm_fused_temporal")
     ops.LAUNCHES["groupnorm_temporal"] += 1
-    return y
-
-
-def _launch_big(x, scale, bias, *, num_groups: int, eps: float, silu: bool):
-    """K10: one cooperative launch."""
-    x, scale, bias = _twophase_args(x, scale, bias, num_groups, "group_norm_fused_big")
-    _, (b, t, hw, c) = _sequence_view(x)
-    rows = t * hw
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    lib = _build.load("groupnorm_twophase")
-    blocks = lib.gn_big_blocks
-    blocks.restype = ctypes.c_int
-    blocks.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-    nb = blocks(b, rows, c, is_bf16)
-    if nb < 1:
-        raise RuntimeError(f"group_norm_fused_big: {b} samples do not fit one cooperative launch")
-    ws = torch.empty(b * (nb + 1) * 2 * c, device=x.device, dtype=torch.float32)
-    y = torch.empty_like(x)
-    fn = lib.gn_big
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    _build.check(fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(), b, nb, rows, c,
-                    num_groups, float(eps), int(silu), is_bf16, torch.cuda.current_stream(x.device).cuda_stream),
-                 "group_norm_fused_big")
-    ops.LAUNCHES["groupnorm_big"] += 1
     return y

@@ -13,6 +13,8 @@ CameraCtrl are not.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
 from camc2v_tpu_torch.config import (
@@ -146,18 +148,18 @@ PRESETS = {
 }
 
 
+FLAGSHIP_YAML = Path(__file__).resolve().parents[1] / "configs" / "models" / "camcontexti2v_256.yaml"
+
+
 def camcontexti2v_256_train() -> TrainConfig:
-    """The flagship's training recipe: `camc2v_tpu/config_yaml.py::
-    build_train_config` of configs/models/camcontexti2v_256.yaml (the port
-    holds the values; it has no yaml reader). Trains the adaptor, the
-    Resampler and the zero conv (97M of 2.85B parameters) with AdamW at
-    1e-4, weight decay 1e-2, global-norm clip 0.5, 4 accumulated
-    micro-batches, frozen weights in bf16, no EMA."""
-    return TrainConfig(
-        learning_rate=1e-4, scale_lr=False, weight_decay=1e-2, grad_clip=0.5, accumulate_grad_batches=4,
-        use_ema=False, ema_decay=0.9999, trainable_patterns=(r"^adaptor/", r"^image_proj/", r"^zero_conv/"),
-        frozen_param_dtype="bfloat16", lr_schedule=None, max_steps=50000,
-    )
+    """The flagship's training recipe, read from
+    configs/models/camcontexti2v_256.yaml (`config_yaml.build_train_config`):
+    the adaptor, the Resampler and the zero conv (97M of 2.85B parameters)
+    trained with AdamW at 1e-4, weight decay 1e-2, global-norm clip 0.5, 4
+    accumulated micro-batches, frozen weights in bf16, no EMA."""
+    from camc2v_tpu_torch.config_yaml import build_train_config, load_yaml
+
+    return build_train_config(load_yaml(str(FLAGSHIP_YAML)))
 
 
 def _model_class(config: DynamiCrafterConfig):
@@ -172,10 +174,10 @@ def _model_class(config: DynamiCrafterConfig):
     return DynamiCrafter
 
 
-def _seeded_model(name: str, device, seed: int, dtype):
-    """The preset `name` built on `device` with seeded random f32 weights
-    (`utils.weights.init_weights`, no checkpoint in the repository). On the
-    card the matmul numerics are pinned first (`configure_numerics`).
+def seeded_model(config: DynamiCrafterConfig, cls, device, seed: int, dtype):
+    """A `cls` model of `config` built on `device` with seeded random f32
+    weights (`utils.weights.init_weights`, no checkpoint in the repository).
+    On the card the matmul numerics are pinned first (`configure_numerics`).
     Raises on a machine without CUDA unless the caller asks for the CPU."""
     from camc2v_tpu_torch import configure_numerics
     from camc2v_tpu_torch.utils.weights import init_weights
@@ -183,13 +185,17 @@ def _seeded_model(name: str, device, seed: int, dtype):
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(f"{name}: CUDA is not available; pass device='cpu' to build on the CPU")
+            raise RuntimeError(f"{cls.__name__}: CUDA is not available; pass device='cpu' to build on the CPU")
         configure_numerics()
-    config = PRESETS[name]()
     with torch.device(device):
-        model = _model_class(config)(config, dtype=dtype)
+        model = cls(config, dtype=dtype)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     return model
+
+
+def _seeded_model(name: str, device, seed: int, dtype):
+    config = PRESETS[name]()
+    return seeded_model(config, _model_class(config), device, seed, dtype)
 
 
 def build(name: str, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):

@@ -71,7 +71,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               host enqueue and profiler device time per call beside the twin,
               the library call and the bound; K9 must run exactly its two
               kernels per call (no copy or memset in the profile) and give
-              the same bits on two runs.
+              the same bits on two runs; K10 runs K1's plan on the same two
+              views: against its twin (K1's), the same bits twice and K1's
+              planned kernels per call. The padded context path: K6 and K7
+              at the adaptor's geometry (cond + 4 context frames of 32x32,
+              the last 2 padded: NaN lines) and K2 and K5 at the UNet's ds1
+              image cross-attention with the 2 padded frames' 512 tokens
+              masked, each against its twin and against the kernel on the
+              unpadded keys (outputs, lse and dq within 4 ulps, the kept
+              keys' dk and dv too, the padded keys' dk and dv exactly 0, the
+              padded frames' tiles off in the skip map).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -129,6 +138,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               shared by a batch of 2), K8, K9 (a 5-D UNet site and the VAE's
               256x256 4-D view) and K10 (which has no model caller) against
               their twins.
+  9. train-run the training entry point (`python -m camc2v_tpu_torch.main.
+              train`, called in this process) on configs/models/
+              camcontexti2v_256.yaml at full width: a synthetic RealEstate10K
+              tree under smoke_out/train_run (.npz clips at 360x640, moving
+              camera poses, captions, a synthetic BPE merges table), the
+              yaml's data path (1-4 context frames padded to 4, batch 2,
+              accumulation 4) with dotlist overrides for the paths and the
+              logging (CSV, every step; validation and a checkpoint every 4
+              micro-steps); 8 micro-steps, then `--continue` to 12. Fails
+              unless the losses are finite, the resumed run starts at step 8
+              with its restored state bit-equal to the saved run's, the CSV
+              holds the 12 steps' rows, every K1-K7 launches (counts zeroed
+              before the first run, read after the second), and a padded
+              batch (2 of 4 slots) and its unpadded twin, kernels on, give
+              the loss within relative 1e-3 and c_concat's latent branch on
+              the same latents within relative L2 1e-3 (c_concat end to end
+              is printed beside the frozen VAE's own batch dependence, the
+              same 16 frames encoded beside 2 or 4 context frames, which
+              bounds how far it can agree). Prints seconds per
+              micro-step and optimizer step, samples/s, the data wait's
+              share, validation seconds per batch, checkpoint save and
+              restore seconds and bytes, and peak memory.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -136,9 +167,11 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -987,6 +1020,101 @@ def backward_checks(dev) -> dict:
     return res
 
 
+def _exact_zero(name: str, t: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    if t.numel() and t.abs().max().item() != 0:
+        _fail(f"{name}: the padded keys' gradient is not exactly 0 (max |value| {t.abs().max().item():.3e})")
+
+
+@torch.no_grad()
+def padded_context_checks(dev) -> dict:
+    """The training path's padded context slots (1-4 context frames padded to
+    4, `cond_frames_valid`): K6 and K7 at the adaptor's geometry (16 frames x
+    1024 queries over the cond frame and 4 context frames of 32 x 32, 2
+    registers, batch 2) with NaN lines for the last 2 context frames, and K2
+    and K5 at the UNet's ds1 image cross-attention of a batch-2 micro-step
+    (32 x 1024 queries, 5 heads, over 5 frames x 256 image tokens) with the 2
+    padded frames' tokens masked. Each against its twin (4 bf16 ulps), and
+    against the same kernel on the unpadded keys: the padded keys get exactly
+    zero weight, so the outputs and dq agree within 4 ulps, dk and dv of the
+    kept keys too, and the padded keys' dk and dv are exactly 0. The padded
+    frames' tiles must be off in K6/K7's skip map."""
+    from camc2v_tpu_torch.camera import geometry as G
+    from camc2v_tpu_torch.ops import epipolar_flash as ef
+    from camc2v_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    errs = {"epipolar_flash": [], "epipolar_bwd": [], "flash_attention": [], "flash_bwd": []}
+
+    # K6, K7: the adaptor over [cond | 4 context frames], the last 2 padded
+    t, h, w, ds, nreg, heads, hw, kept = 5, 32, 32, 8, 2, 8, 1024, 3
+    cam = bench_camera(2, dev, n_ctx=4)
+    F = G.conditional_fundamental(cam["camera_intrinsics"], cam["RT"], cam["RT_cond"],
+                                  torch.zeros(2, dtype=torch.long, device=dev))
+    valid = torch.arange(t, device=dev) < kept
+    lines = torch.where(valid[None, None, :, None], ef.epipolar_lines(F, h, w, ds), torch.nan)
+    tiles = ef.kernel_tile_map(lines, t, h, w, ds)
+    if tiles[..., kept * hw // ef.KERNEL_BK:t * hw // ef.KERNEL_BK].any():
+        _fail("padded context: a padded frame's tile is on in the skip map")
+    lq = lines.shape[1]
+    q, dout = randn(2, lq, heads, 64), randn(2, lq, heads, 64)
+    k, v = randn(2, t * hw + nreg, heads, 64), randn(2, t * hw + nreg, heads, 64)
+    keep = torch.cat([torch.arange(kept * hw, device=dev), torch.arange(t * hw, t * hw + nreg, device=dev)])
+    ku, vu, lines_u = k[:, keep].contiguous(), v[:, keep].contiguous(), lines[:, :, :kept].contiguous()
+    tiles_u = ef.kernel_tile_map(lines_u, kept, h, w, ds)
+    kw = dict(h=h, w=w, downsample=ds, num_registers=nreg, scale=0.125)
+    geom = dict(kw, t=t, block_q=ef.BLOCK_Q, block_k=ef.BLOCK_K)
+    geom_u = dict(geom, t=kept)
+    out, lse = ef._launch_fwd(q, k, v, lines, tiles, geom, want_lse=True)
+    out_t, lse_t = ef.epipolar_attention_plain(q, k, v, lines, t=t, return_lse=True, **kw)
+    out_u, lse_u = ef._launch_fwd(q, ku, vu, lines_u, tiles_u, geom_u, want_lse=True)
+    errs["epipolar_flash"] += [
+        _compare("padded epipolar adaptor (2,16384,8,64) over 5 frames, 2 padded: out vs twin", out, out_t),
+        _compare_lse("padded epipolar lse vs twin", lse, lse_t),
+        _compare("padded epipolar out vs the kernel on the unpadded keys", out, out_u),
+        _compare_lse("padded epipolar lse vs the kernel on the unpadded keys", lse, lse_u)]
+    d = ef.epipolar_flash_bwd(q, k, v, lines, tiles, out, lse, dout, geom)
+    d_t = ef.epipolar_bwd_plain(q, k, v, lines, out, lse, dout, t=t, **kw)
+    d_u = ef.epipolar_flash_bwd(q, ku, vu, lines_u, tiles_u, out_u, lse_u, dout, geom_u)
+    errs["epipolar_bwd"] += [
+        _bwd_compare("padded epipolar_bwd vs twin", d, d_t),
+        _compare("padded epipolar_bwd dq vs the kernel on the unpadded keys", d[0], d_u[0]),
+        _compare("padded epipolar_bwd dk (kept keys) vs unpadded", d[1][:, keep], d_u[1]),
+        _compare("padded epipolar_bwd dv (kept keys) vs unpadded", d[2][:, keep], d_u[2])]
+    _exact_zero("padded epipolar_bwd dk", d[1][:, kept * hw:t * hw])
+    _exact_zero("padded epipolar_bwd dv", d[2][:, kept * hw:t * hw])
+    del q, k, v, dout, out, lse, d, d_t, d_u, out_t, lse_t
+    torch.cuda.empty_cache()
+
+    # K2, K5: the UNet's ds1 image cross-attention over [cond | 4 context] x 256 tokens, 2 frames padded
+    bt, lq, heads, l_tok, n_tok = 32, 1024, 5, 256, 5
+    lk, lk_u = n_tok * l_tok, kept * l_tok
+    q, dout = randn(bt, lq, heads, 64), randn(bt, lq, heads, 64)
+    k, v = randn(bt, lk, heads, 64), randn(bt, lk, heads, 64)
+    mask = (torch.arange(lk, device=dev) < lk_u)[None, None].expand(bt, lq, lk)
+    out, lse = fa._launch_fwd(q, k, v, mask, 0.125, want_lse=True)
+    out_t, lse_t = fa.flash_fwd_plain(q, k, v, mask, 0.125)
+    ku, vu = k[:, :lk_u].contiguous(), v[:, :lk_u].contiguous()
+    out_u, lse_u = fa._launch_fwd(q, ku, vu, None, 0.125, want_lse=True)
+    errs["flash_attention"] += [
+        _compare("padded image cross-attention (32,1024,5,64) over 1280, 512 masked: out vs twin", out, out_t),
+        _compare_lse("padded image cross-attention lse vs twin", lse, lse_t),
+        _compare("padded image cross-attention out vs the kernel on the 768 unpadded keys", out, out_u),
+        _compare_lse("padded image cross-attention lse vs unpadded", lse, lse_u)]
+    d = fa.flash_bwd(q, k, v, mask, out, lse, dout, 0.125)
+    d_t = fa.flash_bwd_plain(q, k, v, mask, out, lse, dout, 0.125)
+    d_u = fa.flash_bwd(q, ku, vu, None, out_u, lse_u, dout, 0.125)
+    errs["flash_bwd"] += [
+        _bwd_compare("padded flash_bwd vs twin", d, d_t),
+        _compare("padded flash_bwd dq vs the kernel on the unpadded keys", d[0], d_u[0]),
+        _compare("padded flash_bwd dk (kept keys) vs unpadded", d[1][:, :lk_u], d_u[1]),
+        _compare("padded flash_bwd dv (kept keys) vs unpadded", d[2][:, :lk_u], d_u[2])]
+    _exact_zero("padded flash_bwd dk", d[1][:, lk_u:])
+    _exact_zero("padded flash_bwd dv", d[2][:, lk_u:])
+    return {name: max(e) for name, e in errs.items()}
+
+
 @torch.no_grad()
 def route_kernel_checks(dev) -> dict:
     """K8, K9, K10 and K6p, the opt-in routes' kernels, against their plain
@@ -996,6 +1124,7 @@ def route_kernel_checks(dev) -> dict:
     from camc2v_tpu_torch.ops import epipolar_flash as ef
     from camc2v_tpu_torch.ops import groupnorm as gn
     from camc2v_tpu_torch.ops import layernorm as ln
+    from camc2v_tpu_torch.ops._gemm import sm_count
 
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
@@ -1049,8 +1178,12 @@ def route_kernel_checks(dev) -> dict:
         errs.append(_compare(f"groupnorm_temporal {label}", got, twin))
         if not torch.equal(got, gn.group_norm_fused_temporal(x, s_, b_, silu=silu)):
             _fail(f"groupnorm_temporal {label}: two runs on the same input give different bits")
-        errs10.append(_compare(f"groupnorm_big {label}", gn.group_norm_fused_big(x, s_, b_, silu=silu), twin))
-    print("  groupnorm_temporal: two runs bit-identical at every site", flush=True)
+        got10 = gn.group_norm_fused_big(x, s_, b_, silu=silu)
+        errs10.append(_compare(f"groupnorm_big {label} (K1's plan) vs its twin", got10,
+                               gn.group_norm_plain(x, s_, b_, silu=silu)))
+        if not torch.equal(got10, gn.group_norm_fused_big(x, s_, b_, silu=silu)):
+            _fail(f"groupnorm_big {label}: two runs on the same input give different bits")
+    print("  groupnorm_temporal, groupnorm_big: two runs bit-identical at every site", flush=True)
     sites = {}
     for label, shape in [("5-D ds1 (2,16,32,32,320)", (2, 16, 32, 32, 320)),
                          ("VAE 256^2 view (16,16,4096,128)", (16, 16, 4096, 128))]:
@@ -1061,17 +1194,26 @@ def route_kernel_checks(dev) -> dict:
         per_call = _kernels_per_call(k9)
         if sorted(per_call) != ["gn_apply_kernel", "gn_moments_kernel"] or set(per_call.values()) != {1.0}:
             _fail(f"groupnorm_temporal {label}: one call ran {per_call}, not one moments and one apply kernel")
-        t9, t10 = _time_kernel(k9), _time_kernel(lambda: gn.group_norm_fused_big(x, s_, b_, silu=True))
+        k10 = lambda: gn.group_norm_fused_big(x, s_, b_, silu=True)  # noqa: E731
+        plan = gn.norm_plan(shape[0], x.numel() // (shape[0] * shape[-1]), shape[-1], 2, 32, sm_count(x.device))
+        per_call10 = _kernels_per_call(k10)
+        if per_call10 != GN_KERNELS[plan.cluster]:
+            _fail(f"groupnorm_big {label}: one call ran {per_call10}, not K1's planned {GN_KERNELS[plan.cluster]}")
+        t9, t10 = _time_kernel(k9), _time_kernel(k10)
         sites[label] = dict(
             k9_ms=t9["ms"], k9_host_ms=t9["host_ms"], k9_device_ms=t9["device_ms"], k9_kernels_per_call=per_call,
-            k10_ms=t10["ms"], k10_device_ms=t10["device_ms"],
+            k10_ms=t10["ms"], k10_host_ms=t10["host_ms"], k10_device_ms=t10["device_ms"],
+            k10_kernels_per_call=per_call10, k10_path="cluster" if plan.cluster else "two launches",
+            k10_slices=plan.slices,
             twin_ms=_time_ms(lambda: gn.group_norm_temporal_plain(x, s_, b_, silu=True), reps=3),
+            k10_twin_ms=_time_ms(lambda: gn.group_norm_plain(x, s_, b_, silu=True), reps=3),
             library_ms=_time_ms(lambda: torch.nn.functional.group_norm(xn, 32, s_.to(bf), b_.to(bf), 1e-5)),
             **_bound(2 * _nbytes(x) + _nbytes(s_, b_), 0))
         r = sites[label]
         print(f"  time groupnorm {label} + SiLU: K9 {r['k9_ms']:.4f} ms (host {r['k9_host_ms']:.4f}, device "
-              f"{_fmt(r['k9_device_ms'])}; kernels per call {per_call}), K10 {r['k10_ms']:.4f} ms (device "
-              f"{_fmt(r['k10_device_ms'])}), twin {r['twin_ms']:.4f} ms, library (F.group_norm, no SiLU) "
+              f"{_fmt(r['k9_device_ms'])}; kernels per call {per_call}), K10 on K1's plan {r['k10_ms']:.4f} ms (host "
+              f"{r['k10_host_ms']:.4f}, device {_fmt(r['k10_device_ms'])}; {r['k10_path']} x{r['k10_slices']}, "
+              f"kernels per call {per_call10}), twin {r['twin_ms']:.4f} ms, library (F.group_norm, no SiLU) "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (x read twice: "
               f"{1.5 * r['bound_ms']:.4f})", flush=True)
     main = sites["5-D ds1 (2,16,32,32,320)"]
@@ -1079,7 +1221,9 @@ def route_kernel_checks(dev) -> dict:
                   bound_ms=main["bound_ms"], bound_by=main["bound_by"], sites=sites)
     res["groupnorm_temporal"] = dict(max_abs_err=max(errs), ms=main["k9_ms"], host_ms=main["k9_host_ms"],
                                      device_ms=main["k9_device_ms"], **common)
-    res["groupnorm_big"] = dict(max_abs_err=max(errs10), ms=main["k10_ms"], device_ms=main["k10_device_ms"], **common)
+    res["groupnorm_big"] = dict(max_abs_err=max(errs10), ms=main["k10_ms"], host_ms=main["k10_host_ms"],
+                                device_ms=main["k10_device_ms"],
+                                **dict(common, plain_ms=main["k10_twin_ms"], twin_ms=main["k10_twin_ms"]))
 
     # K6p: the UNet's ds8 and ds16 levels at batch 2 reading one batch of
     # penalties (the fused-CFG stack of one request), the bench geometry
@@ -1725,6 +1869,246 @@ def routes_phase(dev, device_line: str) -> dict:
     return dict(unet_step=step, requests=requests, launches=launches)
 
 
+TRAIN_RUN_DIR = os.path.join(OUT_DIR, "train_run")
+RE10K_FRAMES = 48  # frames of a synthetic clip (the flagship's stride of 1-10 over 16 frames shrinks to fit)
+RE10K_HW = (360, 640)  # RealEstate10K's own frame size
+MERGES = ["#version: 0.2", "h e", "l l", "he ll", "hell o</w>", "r o", "ro o", "roo m</w>", "w i", "n d",
+          "wi nd", "o w</w>", "wind ow</w>"]
+
+
+def write_re10k_tree(root: str, names, seed: int) -> dict:
+    """A synthetic RealEstate10K split under `root`: `.npz` clips of
+    RE10K_FRAMES frames at 360 x 640 (a smooth pattern the camera pans
+    across), pose files of a camera moving forward and sideways while it
+    turns (RealEstate10K's format: url, then per frame timestamp, normalised
+    fx fy cx cy, k1 k2 and the 3 x 4 w2c rows), a list and captions."""
+    rng = np.random.default_rng(seed)
+    for sub in ("clips", "meta"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    h, w = RE10K_HW
+    yy, xx = np.mgrid[0:h, 0:w + 4 * RE10K_FRAMES].astype(np.float32)
+    for j, name in enumerate(names):
+        phase = rng.uniform(0, 2 * np.pi, 3).astype(np.float32)
+        base = (127.5 + 120 * np.sin(xx[..., None] / (23 + 7 * j) + yy[..., None] / 31 + phase)).astype(np.uint8)
+        frames = np.stack([base[:, 4 * i:4 * i + w] for i in range(RE10K_FRAMES)])
+        np.savez(os.path.join(root, "clips", f"{name}.npz"), frames=frames, fps=30.0)
+        with open(os.path.join(root, "meta", f"{name}.txt"), "w") as f:
+            f.write("https://www.youtube.com/watch?v=synthetic\n")
+            for i in range(RE10K_FRAMES):
+                a = 0.004 * i + 0.01 * j
+                rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+                pose = np.hstack([rot, [[-0.01 * i], [0.002 * j], [-0.03 * i]]]).reshape(-1)
+                f.write(" ".join(f"{v:.6f}" for v in [33366 * i, 0.48, 0.85, 0.5, 0.5, 0.0, 0.0, *pose]) + "\n")
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(root, "captions.json"), "w") as f:
+        json.dump({f"{n}.mp4": [f"a room with a window {n}"] for n in names}, f)
+    return {"data_dir": os.path.join(root, "clips"), "meta_path": os.path.join(root, "meta"),
+            "meta_list": os.path.join(root, "list.txt"), "caption_file": os.path.join(root, "captions.json"),
+            "video_suffix": ".npz"}
+
+
+def _state_snapshot(state) -> dict:
+    """A CPU copy of what a checkpoint holds of `state`."""
+    from camc2v_tpu_torch.utils import checkpoint as CK
+
+    def cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", copy=True)
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(cpu(v) for v in x)
+        return x
+
+    return cpu(CK.state_dict(state))
+
+
+def _bit_equal(a, b, path="state") -> list:
+    """The paths where two snapshots differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor):
+        bits = lambda t: t.reshape(-1).view(torch.uint8) if t.is_floating_point() else t  # noqa: E731
+        return [] if isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and \
+            torch.equal(bits(a), bits(b)) else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path]
+        return [p for k in a for p in _bit_equal(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _bit_equal(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def _pad_context(batch: dict, nmax: int) -> dict:
+    """`batch` with its context frames padded to `nmax` slots (zero frames,
+    identity poses) and `cond_frames_valid`, as the data path's collate pads."""
+    out = dict(batch)
+    cf, rt = batch["cond_frames"], batch["RT_cond"]
+    b, n = cf.shape[:2]
+    out["cond_frames"] = torch.cat([cf, cf.new_zeros(b, nmax - n, *cf.shape[2:])], dim=1)
+    out["RT_cond"] = torch.cat([rt, torch.eye(4, device=rt.device).expand(b, nmax - n, 4, 4)], dim=1)
+    out["cond_frames_valid"] = (torch.arange(nmax, device=cf.device) < n).expand(b, nmax)
+    return out
+
+
+def train_run_phase(dev, device_line: str) -> dict:
+    """Phase 9: the training entry point on the flagship yaml (see the
+    module docstring)."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.main import train
+    from camc2v_tpu_torch.main.callbacks import Callback
+
+    shutil.rmtree(TRAIN_RUN_DIR, ignore_errors=True)
+    data_root = os.path.join(TRAIN_RUN_DIR, "re10k")
+    t0 = time.perf_counter()
+    splits = {"train": write_re10k_tree(os.path.join(data_root, "train"), [f"train{i}" for i in range(4)], 1),
+              "validation": write_re10k_tree(os.path.join(data_root, "test"), ["test0", "test1"], 2)}
+    merges = os.path.join(data_root, "merges.txt")
+    with open(merges, "w") as f:
+        f.write("\n".join(MERGES) + "\n")
+    print(f"  synthetic RealEstate10K: 4 train and 2 validation clips of {RE10K_FRAMES} frames at "
+          f"{RE10K_HW[0]}x{RE10K_HW[1]} written in {time.perf_counter() - t0:.1f} s", flush=True)
+    argv = ["--config", "configs/models/camcontexti2v_256.yaml", "--name", "flagship", "--logdir", TRAIN_RUN_DIR,
+            "--bpe_path", merges, "--seed", "4321"]
+    argv += [f"data.params.{split}.params.{k}={v}" for split, kv in splits.items() for k, v in kv.items()]
+    argv += ["data.params.validation_max_n_samples=2", "lightning.trainer.val_check_interval=4",
+             "lightning.trainer.limit_val_batches=1", "lightning.trainer.log_every_n_steps=1", "lightning.logger=csv",
+             "lightning.callbacks.metrics_over_trainsteps_checkpoint.params.every_n_train_steps=4"]
+
+    class Meter(Callback):
+        """Host time of each micro-step (metrics reach the host every step,
+        so each step ends synchronised) and its data wait: from asking the
+        loader for the batch until the batch is on the card."""
+
+        def __init__(self):
+            self.steps = []
+
+        def on_train_batch_start(self, step):
+            self.t0 = time.perf_counter()
+
+        def on_data_loaded(self, step):
+            self.t1 = time.perf_counter()
+
+        def on_train_batch_end(self, step, state, metrics):
+            self.steps.append(dict(step=step, s=time.perf_counter() - self.t0, data_s=self.t1 - self.t0))
+
+    class RestoreCheck(Callback):
+        """The resumed state against the saved run's, bit for bit."""
+
+        def __init__(self, saved):
+            self.saved, self.diff, self.step = saved, None, None
+
+        def on_fit_start(self, step, state):
+            self.step = step
+            self.diff = _bit_equal(self.saved, _state_snapshot(state))
+
+    runs = {}
+    ops.reset_launch_counts()
+    saved = None
+    for label, steps, extra in (("run", 8, []), ("resume", 12, ["--continue"])):
+        meter = Meter()
+        cbs = [meter] + ([RestoreCheck(saved)] if saved is not None else [])
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        trainer, state = train.main(argv + ["--max_steps", str(steps)] + extra, callbacks=cbs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        hist = trainer.history
+        if not hist or not all(np.isfinite([h[k] for h in hist for k in ("loss", "grad_norm")])):
+            _fail(f"train-run {label}: a loss or grad norm is not finite: {hist}")
+        ms = meter.steps
+        b = 2
+        micro = [m["s"] for m in ms]
+        later = sorted(micro[1:]) or micro
+        runs[label] = dict(
+            wall_s=wall, steps=[m["step"] for m in ms], micro_step_s=micro,
+            micro_step_median_after_first_s=later[len(later) // 2],
+            optimizer_step_s=[sum(micro[i:i + 4]) for i in range(0, len(micro) - 3, 4)],
+            samples_per_s=b * len(micro) / sum(micro), data_wait_s=[m["data_s"] for m in ms],
+            data_share=sum(m["data_s"] for m in ms) / sum(micro), losses=[h["loss"] for h in hist],
+            grad_norms=[h["grad_norm"] for h in hist], val=trainer.val_history, checkpoints=trainer.checkpoints,
+            restore_s=trainer.restore_seconds, resumed_from=trainer.resumed_from,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        r = runs[label]
+        print(f"  train-run {label} to step {state.step}: micro-step s {[round(x, 3) for x in micro]} (median after "
+              f"the first {r['micro_step_median_after_first_s']:.3f}), s per optimizer step "
+              f"{[round(x, 3) for x in r['optimizer_step_s']]}, {r['samples_per_s']:.3f} samples/s, data wait "
+              f"{[round(m['data_s'], 4) for m in ms]} s ({100 * r['data_share']:.2f}% of the micro-steps), validation "
+              f"{[(v['step'], round(v['seconds'] / v['batches'], 3)) for v in trainer.val_history]} (step, s per "
+              f"batch), checkpoints {[(c['step'], c['bytes'], round(c['seconds'], 3)) for c in trainer.checkpoints]}"
+              f" (step, bytes, s), restore {r['restore_s']} s, peak {r['peak_gib']:.2f} GiB, {wall:.1f} s in all "
+              f"with the model's build [{device_line}]", flush=True)
+        print(f"    loss {[round(x, 5) for x in r['losses']]} grad_norm {[round(x, 4) for x in r['grad_norms']]}",
+              flush=True)
+        if label == "run":
+            if state.step != 8 or state.updates != 2 or [c["step"] for c in trainer.checkpoints] != [4, 8] or \
+                    [v["step"] for v in trainer.val_history] != [4, 8]:
+                _fail(f"train-run: step {state.step} updates {state.updates}, checkpoints {trainer.checkpoints}, "
+                      f"validations {trainer.val_history}")
+            saved = _state_snapshot(state)
+        else:
+            check = cbs[1]
+            print(f"  train-run resumed at step {check.step} (trainer: {trainer.resumed_from}); restored state "
+                  f"bit-equal to the saved run's: {not check.diff} {check.diff[:5]}", flush=True)
+            if check.step != 8 or trainer.resumed_from != 8 or check.diff or state.step != 12 or \
+                    state.updates != 3 or ms[0]["step"] != 9:
+                _fail(f"train-run: the resumed run started at {check.step} or its state differs: {check.diff[:5]}")
+            model = trainer.model
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    print(f"[9 launches] train-run {launches}", flush=True)
+    if not all(launches[n] > 0 for n in TRAIN_PATH):
+        _fail(f"train-run: a kernel of the path never launched: {launches}")
+    with open(os.path.join(TRAIN_RUN_DIR, "flagship", "logs", "metrics.csv")) as f:
+        rows = [line for line in f.read().splitlines() if line]
+    print(f"  metrics.csv: {len(rows) - 1} rows under one header: {rows[0]}", flush=True)
+    if rows[0].split(",")[0] != "step" or [int(r.split(",")[0]) for r in rows[1:]] != list(range(1, 13)):
+        _fail(f"train-run: metrics.csv holds {rows[:3]}... not the 12 steps' rows")
+
+    # a padded batch (2 context frames in 4 slots) against its unpadded twin, kernels on: the loss end to
+    # end; c_concat's latent branch on the same latents (the padded slots' NaN lines and skipped tiles);
+    # and, reported beside them, c_concat end to end and the frozen VAE's own dependence on its batch (the
+    # same 16 frames encoded beside 2 or 4 context frames), which sets how far c_concat end to end can agree
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
+    with torch.no_grad():
+        batch = camcontext_batch(model, 1, 91, dev)
+        padded = _pad_context(batch, 4)
+        t = torch.tensor([500], device=dev)
+        outs = {}
+        for name, bt in (("unpadded", batch), ("padded", padded)):
+            z, cond = model.prepare_batch(bt, None, need_full_z=True)
+            noise = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+            loss, _ = model.p_losses(z, cond, t, noise, model.get_fs(bt), deterministic=True)
+            outs[name] = (z, cond, loss.float())
+        (zu, cu, lu), (zp, cp, lp) = outs["unpadded"], outs["padded"]
+        idx = torch.zeros(1, dtype=torch.long, device=dev)
+        z_add = model.encode_first_stage(batch["cond_frames"])
+        z_slots = torch.cat([z_add, model.encode_first_stage(padded["cond_frames"][:, 2:])], dim=1)
+        branch_u = model.latent_condition(batch, zu[:, 0], z_add, idx)
+        branch_p = model.latent_condition(padded, zu[:, 0], z_slots, idx, ctx_valid=padded["cond_frames_valid"])
+        video = batch["video"]
+        frames = video.shape[1]
+        vae_rel = rel(model.encode_first_stage(torch.cat([video, padded["cond_frames"]], 1))[:, :frames],
+                      model.encode_first_stage(torch.cat([video, batch["cond_frames"]], 1))[:, :frames])
+    rel_l, rel_b, rel_c = (abs(lp - lu) / abs(lu)).item(), rel(branch_p, branch_u), rel(cp["c_concat"], cu["c_concat"])
+    print(f"  padded (2 of 4 slots) vs unpadded, kernels on: loss {lp.item():.6f} vs {lu.item():.6f} rel={rel_l:.3e}, "
+          f"c_concat's latent branch on the same latents rel_l2={rel_b:.3e} (tol 1e-3 each); c_concat end to end "
+          f"rel_l2={rel_c:.3e}, z rel_l2={rel(zp[:, :frames], zu):.3e}, the same {frames} frames VAE-encoded beside 4 or 2 "
+          f"context frames rel_l2={vae_rel:.3e}; image tokens masked {int((~cp['c_crossattn_mask']).sum())}",
+          flush=True)
+    if not (rel_l <= 1e-3 and rel_b <= 1e-3 and torch.isfinite(cp["c_concat"]).all()):
+        _fail("train-run: the padded batch disagrees with its unpadded twin")
+    del model
+    torch.cuda.empty_cache()
+    return dict(device=device_line, runs=runs, launches=launches, csv_rows=len(rows) - 1,
+                padded_vs_unpadded=dict(loss_rel=rel_l, latent_branch_rel_l2=rel_b, c_concat_rel_l2=rel_c,
+                                        vae_batch_rel_l2=vae_rel))
+
+
 # registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
 # kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
 # and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
@@ -1814,6 +2198,10 @@ def main() -> None:
         checks[name]["unet_call_sites"] = found
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], found["max_abs_err"])
     checks.update(backward_checks(dev))
+    padded = padded_context_checks(dev)
+    for name, err in padded.items():
+        checks[name]["padded_context_max_abs_err"] = err
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
     checks.update(route_kernel_checks(dev))
     torch.cuda.empty_cache()
 
@@ -1859,9 +2247,15 @@ def main() -> None:
     print("[8 routes] CamContextI2V-256 with the opt-in routes on (K6p, K8, K9, fused CFG, DPM++(2M))", flush=True)
     routes = routes_phase(dev, device_line)
 
+    print("[9 train-run] the training entry point on the flagship yaml: synthetic RealEstate10K, 1-4 context "
+          "frames padded to 4, validation and checkpoints every 4 micro-steps, resumed", flush=True)
+    with _switches("0"):
+        train_run = train_run_phase(dev, device_line)
+
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
-                       launches_camcontexti2v=cc_launches, train=train, routes=routes, kernels=checks), f, indent=1)
+                       launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
+                       kernels=checks), f, indent=1, default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -1876,7 +2270,7 @@ def main() -> None:
                                    "camc2v_tpu/ops/epipolar_flash.py:370"),
         "layernorm": ("camc2v_tpu_torch/csrc/layernorm.cu", "camc2v_tpu/ops/layernorm.py:29"),
         "groupnorm_temporal": ("camc2v_tpu_torch/csrc/groupnorm_twophase.cu", "camc2v_tpu/ops/groupnorm.py:265"),
-        "groupnorm_big": ("camc2v_tpu_torch/csrc/groupnorm_twophase.cu", "camc2v_tpu/ops/groupnorm.py:160"),
+        "groupnorm_big": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:160"),  # K1's plan
     }
     keys = ("max_abs_err", "ms", "plain_ms", "twin_ms", "bound_ms", "bound_by", "library_ms")
     # launches: the routes run (this slice's path) for its kernels, the
@@ -1888,6 +2282,7 @@ def main() -> None:
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=routes["launches"][name] if name in new else launches[name],
              launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
+             launches_train_run=train_run["launches"][name],
              **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]

@@ -34,7 +34,7 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from refload import make_batch, my_model  # noqa: E402
-from test_torch_port_modules import assert_close, flat, port_config  # noqa: E402
+from test_torch_port_modules import assert_close, flat, jit_o0, one_torch_thread, port_config  # noqa: E402,F401
 
 from camc2v_tpu_torch.nn.layers import Conv, Dense, GroupNorm32, LayerNormF32  # noqa: E402
 from camc2v_tpu_torch.utils.weights import load_jax_params  # noqa: E402
@@ -142,7 +142,7 @@ def jax_sample(camcontext):
         finally:
             jdc.DDIMSchedule = real
 
-    return jax.jit(run)
+    return jit_o0(run)
 
 
 @pytest.mark.parametrize("eta", [0.0, 1.0])

@@ -30,7 +30,7 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from test_torch_camera_generate import batches, perturb_draws, plain_tiny, seeded_params_for  # noqa: E402
-from test_torch_port_modules import _normal, assert_close, flat, jax_params, port_config, run_both  # noqa: E402
+from test_torch_port_modules import _normal, assert_close, flat, jax_params, jit_o0, port_config, run_both  # noqa: E402
 
 from camc2v_tpu.camera import geometry as JG  # noqa: E402
 from camc2v_tpu.ops import epipolar_flash as jef  # noqa: E402
@@ -107,7 +107,7 @@ def test_pose_encoder_matches_jax():
     params = jax_params(jm, jnp.asarray(x))
     tm = CameraPoseEncoder(pc.PoseEncoderConfig(**kw))
     load_jax_params(tm, flat(params))
-    ref = jax.jit(lambda p, x_: jm.apply({"params": p}, x_))(params, jnp.asarray(x))
+    ref = jit_o0(lambda p, x_: jm.apply({"params": p}, x_))(params, jnp.asarray(x))
     with torch.no_grad():
         got = tm(T_(x))
     assert [tuple(g.shape) for g in got] == [(1, 4, 4, 4, 32), (1, 4, 2, 2, 64)]
@@ -204,8 +204,8 @@ def test_unported_variants_raise():
     model = CamContextI2V(cfg, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="camera_cfg"):
         model.sample({}, camera_cfg=2.0)
-    with pytest.raises(NotImplementedError, match="cond_frames_valid"):
-        model.prepare_batch({"cond_frames_valid": torch.ones(1, 2)})
+    with pytest.raises(NotImplementedError, match="multi_cond_strategy"):  # padded contexts are ported
+        CamContextI2V(dataclasses.replace(cfg, multi_cond_strategy="max"))
 
 
 def test_cami2v_fused_guided_step_matches_jax():
@@ -229,7 +229,7 @@ def test_cami2v_fused_guided_step_matches_jax():
         cond = {"c_concat": c_concat, "c_crossattn": ctx, "camera": jm.camera_condition(p, batch, idx, 1.0)}
         return jm.build_guided_fn(p, cond, dict(cond, c_crossattn=uctx), jm.get_fs(batch), **kw)(x, t)
 
-    ref = np.asarray(jax.jit(jax_step)(params, jb, *(jnp.asarray(a) for a in (x, c_concat, ctx, uctx, t, idx))))
+    ref = np.asarray(jit_o0(jax_step)(params, jb, *(jnp.asarray(a) for a in (x, c_concat, ctx, uctx, t, idx))))
     with torch.no_grad():
         camera = tm.camera_condition(tb, torch.from_numpy(idx).long(), perturb_noise=perturb_draws(2, 4))
         assert set(camera["epi_prep"]) == {8, 16} and len(camera["plucker"]) == 2

@@ -34,6 +34,8 @@ from test_torch_port_modules import (  # noqa: E402
     assert_close,
     flat,
     jax_params,
+    jit_o0,
+    one_torch_thread,
     port_config,
     run_both,
     seeded_tree,
@@ -109,7 +111,7 @@ def jax_sample(models):
         finally:
             jdc.DDIMSchedule = real
 
-    return jax.jit(run)
+    return jit_o0(run)
 
 
 @pytest.mark.parametrize("eta", [0.0, 1.0])

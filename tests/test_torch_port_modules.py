@@ -39,6 +39,33 @@ from camc2v_tpu_torch.utils.weights import load_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = 1e-4
+# XLA at its lowest backend optimisation level: the reference programs here
+# compile in a fraction of the default's time, with the same f32 arithmetic
+XLA_O0 = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def jit_o0(fn):
+    """`jax.jit(fn)` compiled with XLA_O0 on its first call; later calls
+    (with arguments of the same shapes) reuse that program."""
+    jitted, compiled = jax.jit(fn), []
+
+    def call(*args):
+        if not compiled:
+            compiled.append(jitted.lower(*args).compile(XLA_O0))
+        return compiled[0](*args)
+
+    return call
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these small tensors: parallel test workers
+    share the machine's cores, and torch's default of one thread per core in
+    each worker made the training loops here 40x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_params(module, *args, seed=0, **kwargs):
@@ -86,7 +113,7 @@ def port_config(jcfg, cls=None):
 def run_both(jmod, params, tmod, jargs, targs=None, jkw=None, tkw=None, method=None):
     """Apply the flax module (jitted) and the port module to the same inputs."""
     load_jax_params(tmod, flat(params))
-    fn = jax.jit(lambda p, *a: jmod.apply({"params": p}, *a, method=method, **(jkw or {})))
+    fn = jit_o0(lambda p, *a: jmod.apply({"params": p}, *a, method=method, **(jkw or {})))
     ref = np.asarray(fn(params, *(jnp.asarray(a) for a in jargs)))
     targs = targs if targs is not None else [torch.from_numpy(np.asarray(a)) for a in jargs]
     with torch.no_grad():

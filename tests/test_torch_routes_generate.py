@@ -34,7 +34,7 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from test_torch_camera_generate import batches, jax_noise, perturb_draws, plain_tiny, seeded_params_for  # noqa: E402
-from test_torch_port_modules import assert_close, flat, port_config  # noqa: E402
+from test_torch_port_modules import assert_close, flat, jit_o0, one_torch_thread, port_config  # noqa: E402,F401
 from util import perturb_zero_kernels  # noqa: E402
 
 from camc2v_tpu_torch.nn.epipolar import Epipolar  # noqa: E402
@@ -94,7 +94,7 @@ def test_sample_on_the_routes_matches_jax(camcontext, routes_on, monkeypatch):
             return ddim
 
     monkeypatch.setattr(jdc, "DDIMSchedule", Given)
-    ref = np.asarray(jax.jit(lambda p, b, k: jm.sample(p, b, k, **SAMPLE_KW))(params, jb, key))
+    ref = np.asarray(jit_o0(lambda p, b, k: jm.sample(p, b, k, **SAMPLE_KW))(params, jb, key))
     x_t, _ = jax_noise(key, (2, 4, 4, 4, 4))
     calls = _count_unet_calls(monkeypatch, tm)
     got = tm.sample(tb, x_T=x_t, perturb_noise=perturb_draws(2, 4), **SAMPLE_KW).numpy()

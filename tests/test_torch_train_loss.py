@@ -27,7 +27,7 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from test_torch_camera_generate import batches, perturb_draws, plain_tiny, seeded_params_for  # noqa: E402
-from test_torch_port_modules import flat, port_config  # noqa: E402
+from test_torch_port_modules import flat, jit_o0, port_config  # noqa: E402
 from test_torch_train_step import PATTERNS, _trainable, one_torch_thread  # noqa: E402,F401
 
 from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V  # noqa: E402
@@ -74,7 +74,7 @@ def test_loss_and_trainable_gradients_match_jax(camcontext):
     split = lambda keep: jax.tree_util.tree_map(lambda lab, p: p if lab == keep else None, labels, params)  # noqa
     merge = lambda a, b: jax.tree_util.tree_map(lambda x, y: y if x is None else x, a, b,  # noqa: E731
                                                 is_leaf=lambda x: x is None)
-    jloss, jgrads = jax.jit(jax.value_and_grad(lambda tr, fr: loss_fn(merge(tr, fr))))(split("train"),
+    jloss, jgrads = jit_o0(jax.value_and_grad(lambda tr, fr: loss_fn(merge(tr, fr))))(split("train"),
                                                                                        split("freeze"))
     jgrads = {jax_to_torch_name(k): _to_torch_layout(k, v) for k, v in flat(jgrads).items() if v.dtype != object}
 

@@ -35,7 +35,7 @@ sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from refload import Dims, my_model  # noqa: E402
 from test_torch_camera_generate import batches, plain_tiny  # noqa: E402
-from test_torch_port_modules import port_config  # noqa: E402
+from test_torch_port_modules import one_torch_thread, port_config  # noqa: E402,F401
 
 from camc2v_tpu_torch import ops, presets  # noqa: E402
 from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V  # noqa: E402
@@ -44,17 +44,6 @@ from camc2v_tpu_torch.utils.weights import init_weights  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PATTERNS = presets.camcontexti2v_256_train().trainable_patterns
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for these small tensors: parallel test workers
-    share the machine's cores, and torch's default of one thread per core in
-    each worker made the training loops here 40x slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _trainable(tm):
@@ -278,8 +267,8 @@ def test_trainer_fit_runs_phases_and_updates_only_trainables(monkeypatch):
     for n, p in params.items():
         assert n in state.names or torch.equal(p, before[n]), n
     assert sum(not torch.equal(params[n], before[n]) for n in state.names) > len(state.names) // 2
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        Trainer(tm, cfg, [tb], ckpt_dir="ckpts")
+    with pytest.raises(NotImplementedError, match="mesh"):  # checkpoints, callbacks and validation are ported
+        Trainer(tm, cfg, [tb], mesh=object())
 
 
 def test_overfit_one_batch():
