@@ -11,8 +11,10 @@ raises unless `--device cpu` is given), builds the RealEstate10K loaders from
 the `data` section (1-4 context frames padded to 4 in the flagship yaml) and
 the callbacks from `lightning`, and runs `main.harness.Trainer.fit`;
 `--continue` resumes from the run's latest checkpoint. A `pretrained_checkpoint`
-that exists raises: importing the reference's `.pt` is not ported, so runs
-start from seeded weights.
+(or `--pretrained`) that exists is the reference's `.pt`: it is imported into
+the seeded model (`utils/torch_import.py::load_reference_checkpoint`, keys
+that match loaded, the rest reported in the log); one that does not exist
+leaves the seeded weights.
 
 The `lightning` keys read here: `trainer.{max_steps, accumulate_grad_batches,
 gradient_clip_val, precision, val_check_interval, limit_val_batches,
@@ -46,12 +48,11 @@ def parse_args(argv: Optional[list] = None):
 
 
 def _sample_kwargs(li: dict) -> dict:
-    if not li.get("enable_camera_condition", True):
-        raise NotImplementedError("log_images_kwargs.enable_camera_condition=false is not ported")
     return dict(ddim_steps=li.get("ddim_steps", 25), ddim_eta=li.get("ddim_eta", 1.0),
                 guidance_scale=li.get("unconditional_guidance_scale", 7.5),
                 timestep_spacing=li.get("timestep_spacing", "uniform"),
-                guidance_rescale=li.get("guidance_rescale", 0.0))
+                guidance_rescale=li.get("guidance_rescale", 0.0),
+                enable_camera_condition=li.get("enable_camera_condition", True))
 
 
 def main(argv: Optional[list] = None, callbacks: Optional[list] = None):
@@ -81,9 +82,13 @@ def main(argv: Optional[list] = None, callbacks: Optional[list] = None):
     log.info(f"model: {type(model).__name__} on {device}, {sum(p.numel() for p in model.parameters()):,} parameters")
     ckpt_path = args.pretrained or pretrained
     if ckpt_path and os.path.exists(ckpt_path):
-        raise NotImplementedError(f"importing the reference checkpoint {ckpt_path} is not ported; "
-                                  "move it away to start from seeded weights")
-    if ckpt_path:
+        from camc2v_tpu_torch.utils.torch_import import load_reference_checkpoint
+
+        report = load_reference_checkpoint(model, ckpt_path)
+        log.info(f"imported {len(report['mapped'])} tensors from {ckpt_path} "
+                 f"({len(report['unmatched_ckpt'])} unmatched, {len(report['missing_params'])} ours missing, "
+                 f"{len(report['shape_mismatch'])} shape mismatches)")
+    elif ckpt_path:
         log.info(f"pretrained checkpoint {ckpt_path} not found: seeded weights (seed {args.seed})")
 
     tokenizer = default_tokenizer(args.bpe_path, model.config.clip_text.context_length)

@@ -15,7 +15,8 @@ materialised densely (the attention seam sends it to K2 on the card).
 
 Generation (only the cond and context frames VAE-encoded) and training
 (`need_full_z`: all T + N frames encoded, CFG dropout, the adaptor's
-`adaptor_use_mask` phase flag) are ported, cond frame 0. In training the
+`adaptor_use_mask` phase flag) are ported, at any conditioning frame
+(`cond_frame_index`, `rand_cond_frame`). In training the
 adaptor runs on K6 and its gradient on K7. The 'max'/'avg' strategies, the
 Plücker adaptor input and cross-normalisation raise.
 
@@ -44,6 +45,7 @@ from camc2v_tpu_torch.camera import geometry as G
 from camc2v_tpu_torch.camera.adaptors import MultiLatentEpipolarAdaptor
 from camc2v_tpu_torch.config import CamContextI2VConfig
 from camc2v_tpu_torch.models.camera_base import CamI2V
+from camc2v_tpu_torch.models.dynamicrafter import take_frame
 from camc2v_tpu_torch.nn.layers import Conv
 from camc2v_tpu_torch.ops import epipolar_flash as ef
 
@@ -124,32 +126,38 @@ class CamContextI2V(CamI2V):
         return img_cat
 
     def prepare_batch(self, batch: dict, generator: Optional[torch.Generator] = None, *,
-                      random_uncond: bool = False, need_full_z: bool = False, prefetch_uncond: bool = False,
+                      random_uncond: bool = False, rand_cond_frame: Optional[bool] = None,
+                      cond_frame_index=None, enable_camera_condition: bool = True,
+                      trace_scale_factor: float = 1.0, need_full_z: bool = False, prefetch_uncond: bool = False,
                       perturb_noise: Optional[torch.Tensor] = None, adaptor_use_mask: Optional[bool] = None):
-        """(z, cond), cond frame 0 (reference camcontexti2v.py:280-491); the
-        flags as in `DynamiCrafter.prepare_batch`. need_full_z encodes the
-        T target frames and the N context frames in one VAE call."""
+        """(z, cond) (reference camcontexti2v.py:280-491); the flags as in
+        `DynamiCrafter.prepare_batch`. need_full_z encodes the T target
+        frames and the N context frames in one VAE call; otherwise the
+        conditioning frame and the context frames. The latent branch always
+        runs on the cameras (`enable_camera_condition` leaves out only the
+        UNet's camera payload, as in the JAX package)."""
         cfg: CamContextI2VConfig = self.config
         video, cond_frames = batch["video"], batch.get("cond_frames")
         ctx_valid = batch.get("cond_frames_valid")
         ctx_valid = None if ctx_valid is None or cond_frames is None else ctx_valid.bool()
         b, t, H, W = video.shape[:4]
-        cond_frame_index = torch.zeros(b, dtype=torch.long, device=video.device)
-        camera = self.camera_condition(batch, cond_frame_index, perturb_noise=perturb_noise)
+        idx = self.cond_frame_indices(b, video.device, generator, rand_cond_frame, cond_frame_index)
+        camera = (self.camera_condition(batch, idx, trace_scale_factor=trace_scale_factor,
+                                        perturb_noise=perturb_noise) if enable_camera_condition else None)
 
-        img = video[:, 0]  # cond_frame_index 0
+        img = take_frame(video, idx)
         latent = cond_frames is not None and self.adaptor is not None
         if need_full_z:
             z_all = self.encode_first_stage(torch.cat([video, cond_frames], dim=1) if latent else video, generator)
             z, z_add = z_all[:, :t], z_all[:, t:]
-            z_cond = z[:, 0]
+            z_cond = take_frame(z, idx)
         else:
             frames = torch.cat([img[:, None], cond_frames], dim=1) if latent else img[:, None]
             z_sel = self.encode_first_stage(frames, generator)  # (B, 1[+N], h, w, 4)
             z_cond, z_add = z_sel[:, 0], z_sel[:, 1:]
             z = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
         if latent:
-            c_concat = self.latent_condition(batch, z_cond, z_add, cond_frame_index, adaptor_use_mask, ctx_valid)
+            c_concat = self.latent_condition(batch, z_cond, z_add, idx, adaptor_use_mask, ctx_valid)
         else:
             c_concat = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
 
@@ -171,6 +179,8 @@ class CamContextI2V(CamI2V):
         l_tok = img_emb.shape[1]
         img_emb = img_emb.reshape(b, (1 + n_ctx) * l_tok, -1)
         cond["c_concat"] = c_concat
+        cond["c_cond_frame_index"] = idx
+        cond["origin_z0"] = z if need_full_z else None
         cond["c_crossattn"] = torch.cat([prompt_emb, img_emb], dim=1)
         if ctx_valid is not None and n_ctx:
             # token validity of the UNet's image cross-attention: a padded frame's tokens hidden
@@ -178,5 +188,6 @@ class CamContextI2V(CamI2V):
             cond["c_crossattn_mask"] = torch.cat([
                 torch.ones(b, prompt_emb.shape[1], dtype=torch.bool, device=video.device),
                 frame_valid.repeat_interleave(l_tok, dim=1)], dim=1)
-        cond["camera"] = camera
+        if camera is not None:
+            cond["camera"] = camera
         return z, cond

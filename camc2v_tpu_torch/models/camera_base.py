@@ -40,14 +40,16 @@ class CameraControlLVDM(DynamiCrafter):
         self.pose_encoder = CameraPoseEncoder(config.pose_encoder, dtype=dtype) \
             if config.pose_encoder is not None else None
 
-    def relative_c2w_from_batch(self, batch: dict, cond_frame_index: torch.Tensor
+    def relative_c2w_from_batch(self, batch: dict, cond_frame_index: torch.Tensor, trace_scale_factor: float = 1.0
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(K, relative c2w) in f32: w2c inverted and made relative to the
-        conditioning frame (the JAX trace_scale_factor at its generation
-        value, 1)."""
+        """(K, relative c2w) in f32: w2c inverted, made relative to the
+        conditioning frame, the translations scaled by trace_scale_factor
+        (reference model/base.py:112-198, camcontexti2v.py:529-537)."""
         K = batch["camera_intrinsics"].float()
         c2w = torch.linalg.inv(batch["RT"].float())
-        return K, G.relative_pose(c2w, cond_frame_index, mode="left", normalize_T0=self.config.normalize_T0)
+        rel = G.relative_pose(c2w, cond_frame_index, mode="left", normalize_T0=self.config.normalize_T0)
+        rel[:, :, :3, 3] *= trace_scale_factor
+        return K, rel
 
     def plucker_features(self, K: torch.Tensor, rel_c2w: torch.Tensor, H: int, W: int
                          ) -> Optional[tuple[torch.Tensor, ...]]:
@@ -66,9 +68,10 @@ class CamI2V(CameraControlLVDM):
         if config.epipolar is not None:
             require_plain(config.epipolar)
 
-    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *,
+    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *, trace_scale_factor: float = 1.0,
                          perturb_noise: Optional[torch.Tensor] = None) -> dict:
-        """The UNet's camera payload (reference camcontexti2v.py:525-572).
+        """The UNet's camera payload (reference camcontexti2v.py:525-572),
+        the poses relative to each sample's conditioning frame.
 
         perturb_noise: standard-normal draws of the (B, T, T, 3, 1)
         translations' shape for the zero-translation perturbation; by default
@@ -77,7 +80,7 @@ class CamI2V(CameraControlLVDM):
         cfg: CamI2VConfig = self.config
         video = batch["video"]
         b, t, H, W = video.shape[:4]
-        K, rel_c2w = self.relative_c2w_from_batch(batch, cond_frame_index)
+        K, rel_c2w = self.relative_c2w_from_batch(batch, cond_frame_index, trace_scale_factor)
         cam: dict[str, Any] = {"cond_frame_index": cond_frame_index}
         if cfg.epipolar is not None:
             pairs = G.relative_c2w_pairs(rel_c2w)  # (B, T, T, 4, 4)

@@ -2,14 +2,16 @@
 
 One `nn.Module` owns the UNet, the VAE, the CLIP text and vision towers and
 the Resampler; methods mirror the JAX assembly's generation path:
-`prepare_batch` -> `build_uncond` -> `build_guided_fn` -> `ddim_sample` (or
-`dpmpp_2m_sample`) -> `decode_first_stage`, driven by `sample`; and its
-training loss:
+`prepare_batch` -> `build_uncond` -> `build_guided_fn` (CFG, camera CFG,
+`cfg_interval`) -> `ddim_sample`, `dpmpp_2m_sample` or `p_sample_loop` ->
+`decode_first_stage`, driven by `sample`; and its training loss:
 `prepare_batch(random_uncond=True, need_full_z=True)` -> `p_losses`
-(q_sample, the UNet with `deterministic=False`, `get_loss`), driven by
-`training_loss`. The random draws of the loss (VAE posterior sample, CFG
-dropout, timestep, noise) come from the `generator` the caller passes, the
-JAX rng's counterpart; the UNet's dropout draws from the global RNG.
+(q_sample, the UNet with `deterministic=False`, `get_loss` against the
+`eps`, `x0` or `v` target), driven by `training_loss`. The random draws of
+the loss (the conditioning frame with `rand_cond_frame`, VAE posterior
+sample, CFG dropout, timestep, noise) come from the `generator` the caller
+passes, the JAX rng's counterpart; the UNet's dropout draws from the global
+RNG.
 The VAE encoder and the CLIP towers are frozen and take data: they run under
 `torch.no_grad()` (the JAX `stop_gradient` on the text embedding).
 
@@ -22,16 +24,19 @@ Batch contract (channels-last, as in the JAX package):
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from camc2v_tpu_torch import ops
 from camc2v_tpu_torch.config import DynamiCrafterConfig
 from camc2v_tpu_torch.core import distributions as D
-from camc2v_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule, q_sample, rescale_noise_cfg
-from camc2v_tpu_torch.models.sampler import ddim_sample, dpmpp_2m_sample
+from camc2v_tpu_torch.core.schedules import (DDIMSchedule, DiffusionSchedule, extract, get_v, q_sample,
+                                             rescale_noise_cfg)
+from camc2v_tpu_torch.models.sampler import SamplerOptions, ddim_sample, dpmpp_2m_sample, p_sample_loop
 from camc2v_tpu_torch.nn.clip import CLIPTextTower, CLIPVisionTower, clip_preprocess
 from camc2v_tpu_torch.nn.epipolar import add_precomputed_penalties
 from camc2v_tpu_torch.nn.resampler import Resampler
@@ -47,8 +52,6 @@ def empty_prompt_tokens(vocab_size: int, context_length: int) -> tuple[int, ...]
 class DynamiCrafter(nn.Module):
     def __init__(self, config: DynamiCrafterConfig, dtype=torch.bfloat16):
         super().__init__()
-        if config.interp_mode or config.perframe_ae or config.use_dynamic_rescale:
-            raise NotImplementedError("DynamiCrafter: interp_mode, perframe_ae and dynamic rescale are not ported")
         self.config = config
         self.dtype = dtype
         self.unet = UNetModel(config.unet, dtype=dtype)
@@ -66,21 +69,37 @@ class DynamiCrafter(nn.Module):
             linear_start=config.linear_start, linear_end=config.linear_end,
             rescale_betas_zero_snr=config.rescale_betas_zero_snr, parameterization=config.parameterization,
         )
+        self.scale_arr = None
+        if config.use_dynamic_rescale:
+            # reference ddpm3d.py:524-528: a ramp 1.0 -> base_scale over the
+            # first turning_step timesteps, then base_scale
+            ramp = np.linspace(1.0, config.base_scale, config.turning_step)
+            rest = np.full(config.timesteps, config.base_scale)
+            self.scale_arr = np.concatenate([ramp, rest])[: config.timesteps].astype(np.float32)
 
     # ---------------------------------------------------------- first stage
     @torch.no_grad()
     def encode_first_stage(self, video: torch.Tensor, generator: Optional[torch.Generator] = None):
         """(B, T, H, W, 3) -> (B, T, h, w, 4) scaled latents (posterior mode
-        without a generator, a sample with one)."""
+        without a generator, a sample with one). With `perframe_ae` the
+        encoder takes one frame at a time (reference ddpm3d.py:633-641)."""
         b, t = video.shape[:2]
-        moments = self.vae.encode(video.reshape(b * t, *video.shape[2:]))
+        frames = video.reshape(b * t, *video.shape[2:])
+        if self.config.perframe_ae:
+            moments = torch.cat([self.vae.encode(frames[i:i + 1]) for i in range(b * t)])
+        else:
+            moments = self.vae.encode(frames)
         z = D.mode(moments) if generator is None else D.sample(moments, generator)
         z = z * self.config.scale_factor
         return z.reshape(b, t, *z.shape[1:]).float()
 
     def decode_first_stage(self, z: torch.Tensor):
         b, t = z.shape[:2]
-        x = self.vae.decode(z.reshape(b * t, *z.shape[2:]) / self.config.scale_factor)
+        zf = z.reshape(b * t, *z.shape[2:]) / self.config.scale_factor
+        if self.config.perframe_ae:  # reference ddpm3d.py:657-663
+            x = torch.cat([self.vae.decode(zf[i:i + 1]) for i in range(b * t)])
+        else:
+            x = self.vae.decode(zf)
         return x.reshape(b, t, *x.shape[1:]).float()
 
     # --------------------------------------------------------- conditioning
@@ -123,22 +142,49 @@ class DynamiCrafter(nn.Module):
         prompt_mask, input_mask = self.cfg_dropout_masks(b, generator if random_uncond else None, device)
         return torch.where(prompt_mask, null_prompt, cond_emb), null_prompt, input_mask
 
-    def prepare_batch(self, batch: dict, generator: Optional[torch.Generator] = None, *,
-                      random_uncond: bool = False, need_full_z: bool = False, prefetch_uncond: bool = False,
-                      perturb_noise: Optional[torch.Tensor] = None):
-        """(z, cond), cond frame 0 (reference model/base.py:237-344).
+    def cond_frame_indices(self, b: int, device, generator: Optional[torch.Generator] = None,
+                           rand_cond_frame: Optional[bool] = None, cond_frame_index=None) -> torch.Tensor:
+        """(B,) long conditioning-frame indices: the given ones (a (B,)
+        tensor or one int for every sample), else with `rand_cond_frame`
+        (None: the config's) and a generator one uniform draw in
+        [0, video_length) per sample, else frame 0 (reference
+        model/base.py:237-262)."""
+        if cond_frame_index is not None:
+            if isinstance(cond_frame_index, (int, np.integer)):
+                return torch.full((b,), cond_frame_index, dtype=torch.long, device=device)
+            return cond_frame_index.to(device=device, dtype=torch.long)
+        rcf = self.config.rand_cond_frame if rand_cond_frame is None else rand_cond_frame
+        if rcf and generator is not None:
+            return torch.randint(0, self.config.video_length, (b,), generator=generator, device=device)
+        return torch.zeros(b, dtype=torch.long, device=device)
 
-        generator: the VAE posterior is sampled with it (its mode without
-        one) and, with `random_uncond`, the CFG dropout draws from it.
+    def prepare_batch(self, batch: dict, generator: Optional[torch.Generator] = None, *,
+                      random_uncond: bool = False, rand_cond_frame: Optional[bool] = None,
+                      cond_frame_index=None, enable_camera_condition: bool = True,
+                      trace_scale_factor: float = 1.0, need_full_z: bool = False, prefetch_uncond: bool = False,
+                      perturb_noise: Optional[torch.Tensor] = None):
+        """(z, cond) (reference model/base.py:237-344).
+
+        generator: the conditioning frame is drawn from it with
+        `rand_cond_frame` (first), the VAE posterior is sampled with it (its
+        mode without one) and, with `random_uncond`, the CFG dropout draws
+        from it. cond_frame_index / rand_cond_frame: see `cond_frame_indices`.
         need_full_z: every frame is VAE-encoded and z holds the clean latents
-        (training); otherwise only the conditioning frame is encoded and z is
-        a broadcast view of it carrying the latent shape (generation)."""
+        (training, the latent surgery; forced by `interp_mode`); otherwise
+        only the conditioning frame is encoded and z is a broadcast view of
+        it carrying the latent shape. cond holds c_concat, c_crossattn,
+        c_cond_frame_index, origin_z0 (z with need_full_z, else None) and,
+        unless enable_camera_condition is False, the camera payload, whose
+        relative translations are scaled by trace_scale_factor."""
+        cfg = self.config
         video = batch["video"]
         b, t = video.shape[:2]
-        img = video[:, 0]  # cond_frame_index 0
+        need_full_z = need_full_z or cfg.interp_mode  # first/last-frame concat needs every latent
+        idx = self.cond_frame_indices(b, video.device, generator, rand_cond_frame, cond_frame_index)
+        img = take_frame(video, idx)
         if need_full_z:
             z = self.encode_first_stage(video, generator)
-            z_cond = z[:, 0]
+            z_cond = take_frame(z, idx)
         else:
             z_cond = self.encode_first_stage(img[:, None], generator)[:, 0]
             z = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
@@ -154,30 +200,50 @@ class DynamiCrafter(nn.Module):
             }
         else:
             img_emb = self.embed_images(img)
-        cond["c_concat"] = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
+        if cfg.interp_mode:
+            frame = torch.arange(t, device=video.device)
+            first_last = (frame == 0) | (frame == t - 1)
+            cond["c_concat"] = torch.where(first_last[None, :, None, None, None], z, 0.0)
+        else:
+            cond["c_concat"] = z_cond[:, None].expand(b, t, *z_cond.shape[1:])
+        cond["c_cond_frame_index"] = idx
+        cond["origin_z0"] = z if need_full_z else None
         cond["c_crossattn"] = torch.cat([prompt_emb, img_emb], dim=1)
-        cond_frame_index = torch.zeros(b, dtype=torch.long, device=video.device)
-        camera = self.camera_condition(batch, cond_frame_index, perturb_noise=perturb_noise)
-        if camera is not None:
-            cond["camera"] = camera
+        if enable_camera_condition:
+            camera = self.camera_condition(batch, idx, trace_scale_factor=trace_scale_factor,
+                                           perturb_noise=perturb_noise)
+            if camera is not None:
+                cond["camera"] = camera
         return z, cond
 
-    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *,
+    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *, trace_scale_factor: float = 1.0,
                          perturb_noise: Optional[torch.Tensor] = None) -> Optional[dict]:
         """Hook of the camera models (reference model/base.py:475-476): the
         UNet's camera payload, or None."""
         return None
 
-    def build_uncond(self, cond: dict, batch_size: int, image_hw) -> dict:
-        """uncond_type 'empty_seq': empty prompt + zero image."""
-        if self.config.uncond_type != "empty_seq":
-            raise NotImplementedError(f"uncond_type '{self.config.uncond_type}' is not ported")
+    def build_uncond(self, cond: dict, batch_size: int, image_hw,
+                     negative_prompt_tokens: Optional[torch.Tensor] = None) -> dict:
+        """The unconditional inputs (reference model/base.py:418-447): the
+        prompt part by `uncond_type` ('empty_seq': the empty prompt;
+        'zero_embed': zeros; 'negative_prompt', or any type when
+        negative_prompt_tokens are given: those tokens' embedding), the image
+        part the zero image's; cond's other inputs shared."""
+        ut = self.config.uncond_type
         pre = cond.get("_uncond")
-        if pre is not None:
-            uc_prompt, uc_img = pre["prompt_emb"], pre["img_emb"]
-        else:
-            device = cond["c_concat"].device
+        device = cond["c_concat"].device
+        if negative_prompt_tokens is not None or ut == "negative_prompt":
+            assert negative_prompt_tokens is not None, "negative_prompt mode needs tokens"
+            uc_prompt = self.encode_text(negative_prompt_tokens.to(device).long())
+        elif ut == "zero_embed":
+            uc_prompt = torch.zeros_like(cond["c_crossattn"][:, : self.config.clip_text.context_length])
+        elif pre is not None:  # empty_seq, prefetched
+            uc_prompt = pre["prompt_emb"]
+        else:  # empty_seq
             uc_prompt = self.encode_text(self._null_tokens(device)).expand(batch_size, -1, -1)
+        if pre is not None:
+            uc_img = pre["img_emb"]
+        else:
             uc_img = self.embed_images(torch.zeros(batch_size, *image_hw, 3, device=device))
         uc = {k: v for k, v in cond.items() if k not in ("_uncond", "c_crossattn_mask")}
         uc["c_crossattn"] = torch.cat([uc_prompt, uc_img], dim=1)  # single-frame: never padded
@@ -213,23 +279,36 @@ class DynamiCrafter(nn.Module):
 
     def p_losses(self, z: torch.Tensor, cond: dict, t: torch.Tensor, noise: torch.Tensor, fs=None, *,
                  deterministic: bool = False) -> tuple[torch.Tensor, dict]:
-        """The eps-prediction loss at timesteps t with the given noise
-        (reference ddpm3d.py:741-785): (loss, {"loss_simple", "loss"})."""
+        """The loss at timesteps t with the given noise (reference
+        ddpm3d.py:741-785): with dynamic rescale z is scaled by the
+        timestep's `scale_arr` first; the target is the noise (`eps`), z
+        (`x0`) or `get_v` (`v`). (loss, {"loss_simple", "loss"})."""
+        cfg = self.config
+        if cfg.use_dynamic_rescale:
+            z = z * extract(self.scale_arr, t, z.dim())
         x_noisy = q_sample(self.schedule, z, t, noise)
         model_output = self.apply_model(x_noisy, t, cond, fs, deterministic=deterministic)
-        # the schedule takes eps only (DiffusionSchedule.create raises on the others)
-        loss_simple = self.get_loss(model_output, noise).mean(dim=(1, 2, 3, 4))
+        if cfg.parameterization == "x0":
+            target = z
+        elif cfg.parameterization == "eps":
+            target = noise
+        elif cfg.parameterization == "v":
+            target = get_v(self.schedule, z, noise, t)
+        else:
+            raise NotImplementedError(cfg.parameterization)
+        loss_simple = self.get_loss(model_output, target).mean(dim=(1, 2, 3, 4))
         loss = loss_simple.mean()
         return loss, {"loss_simple": loss_simple.mean().detach(), "loss": loss.detach()}
 
     def training_loss(self, batch: dict, generator: torch.Generator, *, deterministic: bool = False,
                       **prepare_kwargs) -> tuple[torch.Tensor, dict]:
         """The train-step loss (reference shared_step, camcontexti2v.py:779-793):
-        conditioning with CFG dropout and every frame encoded, a uniform
-        timestep and standard-normal noise per sample (plus the offset noise
-        of `noise_strength`), the UNet in training mode (`deterministic=True`:
-        dropout and block remat off, the validation loss). `prepare_kwargs`
-        carries per-phase flags (CamContextI2V's `adaptor_use_mask`)."""
+        conditioning with CFG dropout (and the config's `rand_cond_frame`)
+        and every frame encoded, a uniform timestep and standard-normal noise
+        per sample (plus the offset noise of `noise_strength`), the UNet in
+        training mode (`deterministic=True`: dropout and block remat off, the
+        validation loss). `prepare_kwargs` carries per-phase flags
+        (CamContextI2V's `adaptor_use_mask`)."""
         cfg = self.config
         z, cond = self.prepare_batch(batch, generator, random_uncond=True, need_full_z=True, **prepare_kwargs)
         b = z.shape[0]
@@ -270,16 +349,36 @@ class DynamiCrafter(nn.Module):
         return cond, uc
 
     def build_guided_fn(self, cond: dict, uc: Optional[dict], fs, *, guidance_scale: float = 1.0,
-                        guidance_rescale: float = 0.0):
-        """Guided denoiser closure. When the cond and uncond contexts have one
-        shape, both run as ONE batch-2B UNet call, everything stacked but the
-        epipolar penalties, which the uncond shares with cond (K6p reads the
-        (B, ...) copy for the 2B batch); otherwise (CamContextI2V's
-        multi-frame context against a single-frame uncond) two calls, or with
-        `CAMC2V_FUSED_CFG=1` the uncond padded to cond's length
-        (`_pad_uncond_for_fusion`) and one call."""
+                        guidance_rescale: float = 0.0, camera_cfg: float = 1.0,
+                        camera_cfg_scheduler: str = "constant",
+                        cfg_interval: Optional[tuple[float, float]] = None):
+        """Guided denoiser closure (reference samplers/ddim.py:253-283).
+
+        When the cond and uncond contexts have one shape, both run as ONE
+        batch-2B UNet call, everything stacked but the epipolar penalties,
+        which the uncond shares with cond (K6p reads the (B, ...) copy for
+        the 2B batch); otherwise (CamContextI2V's multi-frame context against
+        a single-frame uncond) two calls, or with `CAMC2V_FUSED_CFG=1` the
+        uncond padded to cond's length (`_pad_uncond_for_fusion`) and one
+        call.
+
+        camera_cfg != 1 on a cond with a camera payload adds a third call on
+        that cond without the camera (after the padding: its mask is the
+        padded one, and it carries no penalties), weighted by
+        (camera_cfg - 1) w, w = 1 ('constant') or cos((1 - t/999) pi/2)
+        ('cosine'). cfg_interval=(lo, hi): steps whose timestep is outside
+        [lo, hi] run the conditional call alone (on the cond as given).
+
+        The closure is `fn(x, t, step=None)`; the samplers pass the step's
+        timestep as the host int `step` (`fn.host_step`), so neither the
+        cosine weight nor the interval reads t back from the device. A
+        caller that omits it gets the cosine weight computed on the device
+        and, with cfg_interval, one read of t[0]."""
+        cond = _model_inputs(cond)
+        cond_entry = cond
         if uc is None or guidance_scale == 1.0:
             return lambda x, t: self.apply_model(x, t, cond, fs)
+        uc = _model_inputs(uc)
         b = cond["c_concat"].shape[0]
         if uc["c_crossattn"].shape != cond["c_crossattn"].shape and ops.switch_on("CAMC2V_FUSED_CFG"):
             padded = self._pad_uncond_for_fusion(cond, uc)
@@ -299,37 +398,82 @@ class DynamiCrafter(nn.Module):
             def eps_pair(x, t):
                 return self.apply_model(x, t, cond, fs), self.apply_model(x, t, uc, fs)
 
-        def model_out_fn(x, t):
+        do_camera_cfg = camera_cfg != 1.0 and cond.get("camera") is not None
+        cond_nc = None
+        if do_camera_cfg:
+            if camera_cfg_scheduler not in ("constant", "cosine"):
+                raise NotImplementedError(camera_cfg_scheduler)
+            cond_nc = {k: v for k, v in cond.items() if k != "camera"}
+
+        def guided(x, t, step=None):
             e_c, e_u = eps_pair(x, t)
             combined = e_u + guidance_scale * (e_c - e_u)
+            if do_camera_cfg:
+                e_nc = self.apply_model(x, t, cond_nc, fs)
+                if camera_cfg_scheduler == "constant":
+                    w = np.float32(1.0)
+                elif step is not None:
+                    w = np.cos((np.float32(1.0) - np.float32(step) / np.float32(999.0)) * np.float32(math.pi / 2))
+                else:
+                    w = torch.cos((1.0 - t[0].float() / 999.0) * (math.pi / 2))
+                coef = (camera_cfg - 1.0) * w if torch.is_tensor(w) else float(np.float32(camera_cfg - 1.0) * w)
+                combined = combined + coef * (e_c - e_nc)
             if guidance_rescale > 0.0:
                 combined = rescale_noise_cfg(combined, e_c, guidance_rescale)
             return combined
 
-        return model_out_fn
+        if cfg_interval is None:
+            fn = guided
+        else:
+            lo, hi = cfg_interval
+
+            def fn(x, t, step=None):
+                s = int(t[0]) if step is None else step
+                if lo <= s <= hi:
+                    return guided(x, t, step=s)
+                return self.apply_model(x, t, cond_entry, fs)
+        fn.host_step = True
+        return fn
 
     # ----------------------------------------------------------------- sample
     @torch.no_grad()
     def sample(self, batch: dict, *, generator: Optional[torch.Generator] = None, ddim_steps: int = 25,
                ddim_eta: float = 1.0, sampler: str = "ddim", guidance_scale: float = 7.5,
-               guidance_rescale: float = 0.0, timestep_spacing: str = "uniform", decode: bool = True,
-               camera_cfg: float = 1.0, x_T: Optional[torch.Tensor] = None,
-               step_noise: Optional[Sequence[torch.Tensor]] = None, perturb_noise: Optional[torch.Tensor] = None):
-        """CFG sampling -> decoded video (B, T, H, W, 3), with the JAX
-        package's keyword defaults. sampler: "ddim" (eta noise from
-        `generator` or `step_noise`) or "dpmpp_2m" (deterministic,
-        `ddim_eta` ignored) over the DDIM timestep table.
+               guidance_rescale: float = 0.0, cfg_interval: Optional[tuple[float, float]] = None,
+               timestep_spacing: str = "uniform", camera_cfg: float = 1.0, camera_cfg_scheduler: str = "constant",
+               enable_camera_condition: bool = True, cond_frame_index=None, trace_scale_factor: float = 1.0,
+               paste_cond_frame: bool = False, num_overlap: int = 0, blend_mask: Optional[torch.Tensor] = None,
+               blend_x0: Optional[torch.Tensor] = None, clean_cond: bool = False,
+               negative_prompt_tokens: Optional[torch.Tensor] = None, decode: bool = True,
+               return_cond: bool = False, x_T: Optional[torch.Tensor] = None,
+               step_noise: Optional[Sequence] = None, perturb_noise: Optional[torch.Tensor] = None):
+        """Guided sampling -> decoded video (B, T, H, W, 3) (reference
+        log_images -> sample_log -> DDIMSampler.sample, model/base.py:346-472),
+        with the JAX package's keywords and defaults.
 
-        x_T / step_noise: optional initial latents and per-step standard-normal
-        draws in place of `generator`; perturb_noise: the camera models'
-        zero-translation perturbation draws (test hooks)."""
-        if camera_cfg != 1.0:
-            raise NotImplementedError("sample: camera_cfg != 1.0 (the camera-free third pass) is not ported")
-        if sampler == "ddpm":
-            raise NotImplementedError("sample: the ancestral 'ddpm' loop is not ported")
-        if sampler not in ("ddim", "dpmpp_2m"):
+        sampler: "ddim" (eta noise, the latent surgery, the blend),
+        "dpmpp_2m" / "dpmpp" (deterministic, `ddim_eta` ignored, no blend) or
+        "ddpm" (the ancestral loop over the whole DDPM table; `ddim_steps`,
+        eta and spacing ignored; no paste/overlap). paste_cond_frame /
+        num_overlap: the conditioning frame / the first frames pasted from
+        the clean latents (which are then all encoded). Returns the latents
+        with decode=False, and (out, cond) with return_cond.
+
+        x_T / step_noise: optional initial latents and per-step draws in
+        place of `generator` (`models/sampler.py`); perturb_noise: the camera
+        models' zero-translation perturbation draws (test hooks)."""
+        if sampler not in ("ddim", "dpmpp_2m", "dpmpp", "ddpm"):
             raise ValueError(f"unknown sampler {sampler!r} (ddim | dpmpp_2m | ddpm)")
-        z, cond = self.prepare_batch(batch, prefetch_uncond=guidance_scale != 1.0, perturb_noise=perturb_noise)
+        if sampler == "ddpm" and (paste_cond_frame or num_overlap > 0):
+            raise ValueError("paste/overlap surgery requires sampler='ddim'")
+        if sampler in ("dpmpp_2m", "dpmpp") and blend_mask is not None:
+            raise ValueError("blend_mask/blend_x0 requires sampler='ddim'")
+        cfg = self.config
+        z, cond = self.prepare_batch(
+            batch, None, random_uncond=False, rand_cond_frame=False, cond_frame_index=cond_frame_index,
+            enable_camera_condition=enable_camera_condition, trace_scale_factor=trace_scale_factor,
+            need_full_z=paste_cond_frame or num_overlap > 0, prefetch_uncond=guidance_scale != 1.0,
+            perturb_noise=perturb_noise)
         shape = z.shape
         b = shape[0]
         fs = self.get_fs(batch)
@@ -338,19 +482,45 @@ class DynamiCrafter(nn.Module):
         cam, epi = cond.get("camera"), getattr(self.config, "epipolar", None)
         if cam is not None and epi is not None and cam.get("epi_prep"):
             cam["epi_prep"] = add_precomputed_penalties(cam["epi_prep"], epi, self.config.video_length)
-        uc = self.build_uncond(cond, b, batch["video"].shape[2:4]) if guidance_scale != 1.0 else None
+        uc = (self.build_uncond(cond, b, batch["video"].shape[2:4], negative_prompt_tokens)
+              if guidance_scale != 1.0 else None)
         cond.pop("_uncond", None)
-        fn = self.build_guided_fn(cond, uc, fs, guidance_scale=guidance_scale,
-                                  guidance_rescale=guidance_rescale)
-        ddim = DDIMSchedule.create(self.schedule, ddim_steps, timestep_spacing, ddim_eta)
+        fn = self.build_guided_fn(cond, uc, fs, guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                                  camera_cfg=camera_cfg, camera_cfg_scheduler=camera_cfg_scheduler,
+                                  cfg_interval=cfg_interval)
         device = batch["video"].device
         if x_T is None:
             x_T = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        if sampler == "ddim":
-            samples = ddim_sample(ddim, x_T, fn, generator=generator, step_noise=step_noise)
+        options = SamplerOptions(parameterization=cfg.parameterization, paste_cond_frame=paste_cond_frame,
+                                 num_overlap=num_overlap, clean_cond=clean_cond)
+        draws = dict(generator=generator, step_noise=step_noise)
+        blend = {} if blend_mask is None else dict(blend_mask=blend_mask, blend_x0=blend_x0)
+        if sampler == "ddpm":
+            samples = p_sample_loop(self.schedule, x_T, fn, options=options, **blend, **draws)
         else:
-            samples = dpmpp_2m_sample(ddim, x_T, fn)
-        return self.decode_first_stage(samples) if decode else samples
+            ddim = DDIMSchedule.create(self.schedule, ddim_steps, timestep_spacing, ddim_eta, scale_arr=self.scale_arr)
+            surgery = dict(options=options, schedule=self.schedule, origin_z0=cond["origin_z0"],
+                           cond_frame_index=cond["c_cond_frame_index"], **draws)
+            if sampler == "ddim":
+                samples = ddim_sample(ddim, x_T, fn, **surgery, **blend)
+            else:
+                samples = dpmpp_2m_sample(ddim, x_T, fn, **surgery)
+        out = self.decode_first_stage(samples) if decode else samples
+        return (out, cond) if return_cond else out
+
+
+def take_frame(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] for every sample b of a (B, T, ...) tensor."""
+    return x[torch.arange(x.shape[0], device=x.device), idx.to(x.device)]
+
+
+# the cond entries the UNet reads; the others (origin_z0, c_cond_frame_index,
+# the prefetched uncond) are the samplers' or build_uncond's
+_MODEL_KEYS = ("c_concat", "c_crossattn", "c_crossattn_mask", "camera")
+
+
+def _model_inputs(cond: dict) -> dict:
+    return {k: v for k, v in cond.items() if k in _MODEL_KEYS}
 
 
 def _strip_penalties(cond: dict) -> tuple[dict, dict]:

@@ -11,7 +11,9 @@ The TPU kernel kept a whole sample in VMEM; a Hopper block holds at most
 227 KB, so `norm_plan` cuts each sample's rows into slices, one block's
 shared memory each. Every block runs a local two-pass over its slice and
 the slices' (count, mean, M2) merge by Chan's formula in slice order
-(bit-identical on repeat). Where a sample fits a cluster of at most 8
+(bit-identical on repeat). The slices follow from a sample's shape alone,
+so a sample gives the same bits alone and in any batch (the VAE encodes
+the same frames beside 2 or 4 context frames). Where a sample fits a cluster of at most 8
 blocks (every 4-D UNet site) K1 is one launch: the cluster's blocks read
 each other's group sums through distributed shared memory and normalise
 their slices from shared memory, so x is read once. Larger samples (the
@@ -322,7 +324,7 @@ K1_STATIC_SMEM = 128          # what the kernels' own shared variables may take 
 K1_MAX_CLUSTER = 8            # the portable cluster size
 K1_BLOCKS_PER_SM = 2          # the statistics launch's blocks an SM
 K1_BLOCK_SMEM = (233472 // K1_BLOCKS_PER_SM - 1024 - K1_STATIC_SMEM)  # an SM's 228 KB, 1 KB reserved a block
-K1_CLUSTER_FILL = 7 / 8       # the share of an SM's block slots whole clusters can take (GPC packing)
+K1_MIN_SLICES = 3            # a sample's fewest blocks on the cluster path (its rows spread for small samples)
 
 
 class NormPlan(NamedTuple):
@@ -344,26 +346,19 @@ def k1_smem(max_rows: int, c: int, elem: int, rgroups: int, groups: int) -> int:
     return -(-gstat_end // 8) * 8 + 8 * K1_CHUNKS
 
 
-def _cluster_fits(n: int, k: int, smem: int, sms: int) -> bool:
-    """n clusters of k blocks of `smem` bytes run at once: within
-    K1_CLUSTER_FILL of the card's block slots (two an SM where the shared
-    memory lets two share one, else one)."""
-    per_sm = K1_BLOCKS_PER_SM if smem <= K1_BLOCK_SMEM else 1
-    return smem + K1_STATIC_SMEM <= K1_SMEM_MAX and n * k <= per_sm * sms * K1_CLUSTER_FILL
-
-
 @functools.lru_cache(maxsize=None)
 def norm_plan(n: int, rows: int, c: int, elem: int, groups: int, sms: int) -> NormPlan:
     """K1's launch for n samples of `rows` rows of c channels of `elem`
-    bytes in `groups` groups on `sms` SMs. One launch where a cluster of at
-    most K1_MAX_CLUSTER blocks holds a sample and the n clusters run at
-    once (`_cluster_fits`): the smallest cluster size that puts the launch
-    on at least half the SMs (more blocks add exchange and barrier time and
-    no bandwidth: at half the SMs the card's memory is busy), or the largest
-    that fits. Else the statistics launch on slices of at most
-    K1_BLOCK_SMEM, as few as that and half the SMs allow (the last block's
-    merge reads every slice), in whole waves of K1_BLOCKS_PER_SM blocks an
-    SM where they take more than one, then K9's apply."""
+    bytes in `groups` groups on `sms` SMs. A sample's slices (and so the
+    order its statistics merge in) follow from its own shape, never from
+    n: a sample gives the same bits alone and inside any batch. One launch
+    where a cluster of at most K1_MAX_CLUSTER blocks holds a sample: the
+    fewest blocks (at least K1_MIN_SLICES, at most the rows) whose shared
+    memory lets two share an SM, else the fewest that fit one an SM; a
+    batch of more clusters than the card holds runs in waves. Else the
+    statistics launch on as few slices as K1_BLOCK_SMEM allows, and at
+    least half the SMs' worth, then K9's apply (whose grid alone follows
+    n: it does not touch the statistics)."""
     row = c * elem
     pieces = row // K9_PIECE_BYTES
     if row % K9_PIECE_BYTES or not 0 < pieces <= K1_THREADS or c % groups:
@@ -376,16 +371,13 @@ def norm_plan(n: int, rows: int, c: int, elem: int, groups: int, sms: int) -> No
     def smem(slices):
         return k1_smem(-(-rows // slices), c, elem, rgroups, groups)
 
-    fits = [k for k in range(1, min(K1_MAX_CLUSTER, rows) + 1) if _cluster_fits(n, k, smem(k), sms)]
+    sizes = range(min(K1_MIN_SLICES, rows), min(K1_MAX_CLUSTER, rows) + 1)
+    fits = [k for k in sizes if smem(k) + K1_STATIC_SMEM <= K1_SMEM_MAX]
     if fits:
-        slices = next((k for k in fits if 2 * n * k >= sms), fits[-1])
+        slices = next((k for k in fits if smem(k) <= K1_BLOCK_SMEM), fits[0])
     else:
         kmin = -(-rows // ((K1_BLOCK_SMEM - k1_smem(0, c, elem, rgroups, groups)) // row))
-        slots = K1_BLOCKS_PER_SM * sms
-        slices = max(kmin, -(-sms // (2 * n)))
-        if n * slices > slots:  # whole waves
-            slices = -(-n * slices // slots) * slots // n
-        slices = min(rows, slices)
+        slices = min(rows, max(kmin, -(-sms // 2)))
     if rows * slices >= 2 ** 31:
         raise ValueError(f"group_norm_fused: {rows} rows exceed what a launch takes")
     return NormPlan(bool(fits), slices, rgroups, pieces, smem(slices),

@@ -80,7 +80,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               masked, each against its twin and against the kernel on the
               unpadded keys (outputs, lse and dq within 4 ulps, the kept
               keys' dk and dv too, the padded keys' dk and dv exactly 0, the
-              padded frames' tiles off in the skip map).
+              padded frames' tiles off in the skip map). K1's batch
+              invariance: one sample normalised alone and as the first of a
+              batch of 4, at the VAE's 256x256x128 site and the UNet's
+              32x32x320 site, bit-identical or not (printed with the plans).
   4. unet     one full-width batch-2B UNet denoise step with the kernels
               against the same step inside `ops.plain_twins()`: DynamiCrafter,
               then CamContextI2V with a real camera payload; the second also
@@ -156,10 +159,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               the same latents within relative L2 1e-3 (c_concat end to end
               is printed beside the frozen VAE's own batch dependence, the
               same 16 frames encoded beside 2 or 4 context frames, which
-              bounds how far it can agree). Prints seconds per
+              bounds how far it can agree; that dependence layer by layer:
+              the relative L2 after conv_in, each down block, the middle
+              block and conv_out, the first GroupNorm or conv whose output
+              differs and the first above 1e-3; the run fails when a
+              GroupNorm is the first and K1 is not batch-invariant in
+              phase 3). Prints seconds per
               micro-step and optimizer step, samples/s, the data wait's
               share, validation seconds per batch, checkpoint save and
               restore seconds and bytes, and peak memory.
+ 10. generate-02 CamContextI2V-256 generation as 02_generate_videos.py runs
+              it, on the default path: (a) three requests (batch 1 twice,
+              then 2) of the bench recipe with camera CFG 1.5 and the cosine
+              scheduler (a third, camera-free UNet call a step), s/video,
+              UNet calls per step, peak memory and the split; counts zeroed
+              just before and read just after, K1-K4 and K6 must launch;
+              (b) one guided evaluation at t = 500 with camera CFG, and the
+              camera-free pass alone, kernels vs `ops.plain_twins()`: each
+              of the evaluation's three UNet calls and the pass within
+              relative L2 5e-2 (phase 4's tolerance), the guided output's
+              own relative L2 printed (CFG 7.5 scales the calls'
+              differences up against it); in the camera-free pass K6 must
+              not launch and K3 must; (c) DDIM at batch 1 with
+              the conditioning frame 5 pasted and 2 overlap frames: those
+              frames equal origin_z0 bit for bit, every value finite; (d)
+              `p_sample_loop` through the guided closure over the last 25
+              DDPM steps; (e) img2img: `ddim_stochastic_encode` to DDIM step
+              12 of 25, then `ddim_decode`; (d) and (e) timed and finite.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -285,24 +311,30 @@ def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def _kernels_per_call(fn, reps: int = 10) -> dict:
+def _kernels_per_call(fn, reps: int = 10, tries: int = 3) -> dict:
     """{kernel: launches per call} of `reps` calls of `fn` by torch.profiler
     (device events only: kernels, memsets and copies), after a warm-up call;
-    the kernel names without their template arguments."""
+    the kernel names without their template arguments. The profiler loses a
+    kernel's records now and then (a fractional count, or none at all:
+    seen on unchanged kernels); such a count is taken again, `tries` times
+    at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            m = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
-            name = m.group(1) if m else e.key
-            out[name] = out.get(name, 0) + e.count / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                m = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
+                name = m.group(1) if m else e.key
+                out[name] = out.get(name, 0) + e.count / reps
+        if out and all(float(v).is_integer() for v in out.values()):
+            break
     return out
 
 
@@ -584,6 +616,32 @@ def groupnorm_sites(dev, randn, f32n) -> dict:
                 bound_by=main["bound_by"], sites=sites)
 
 
+def k1_batch_invariance(randn, f32n) -> dict:
+    """K1 on one sample alone and as the first of a batch of 4, at the VAE's
+    (., 256, 256, 128) site and the UNet's (., 32, 32, 320) site: whether
+    the sample's output is the same bits (K1's plan picks a sample's slices
+    from the batch's size `n`, `ops/groupnorm.py::norm_plan`)."""
+    from camc2v_tpu_torch.ops import groupnorm as gn
+    from camc2v_tpu_torch.ops._gemm import sm_count
+
+    out = {}
+    for label, shape, eps in (("VAE 256^2", (4, 256, 256, 128), 1e-6), ("UNet 4-D ds1", (4, 32, 32, 320), 1e-5)):
+        x = randn(*shape, scale=2.0) + 0.5
+        s, b = f32n(shape[-1], scale=0.2, mean=1.0), f32n(shape[-1], scale=0.2)
+        alone = gn.group_norm_fused(x[:1].contiguous(), s, b, num_groups=32, eps=eps, silu=True)
+        batched = gn.group_norm_fused(x, s, b, num_groups=32, eps=eps, silu=True)[:1]
+        rows = x[0].numel() // shape[-1]
+        plans = [gn.norm_plan(n, rows, shape[-1], 2, 32, sm_count(x.device))[:2] for n in (1, 4)]
+        same = bool(torch.equal(alone, batched))
+        diff = (alone.float() - batched.float()).abs()
+        out[label] = dict(bit_identical=same, max_abs_diff=diff.max().item(),
+                          elements_differing=int((diff > 0).sum()), plans_n1_n4=plans)
+        print(f"  groupnorm batch invariance {label}: one sample alone vs first of 4 bit-identical={same}, "
+              f"max |diff| {out[label]['max_abs_diff']:.3e} on {out[label]['elements_differing']} of "
+              f"{alone.numel()} elements; plan (cluster, slices) at n=1 {plans[0]}, n=4 {plans[1]}", flush=True)
+    return out
+
+
 @torch.no_grad()
 def kernel_checks(dev) -> dict:
     from camc2v_tpu_torch import ops
@@ -605,6 +663,7 @@ def kernel_checks(dev) -> dict:
     # off), the same bits twice, the kernels of one call from the profiler
     # (one on the cluster path, statistics and apply on the other), times
     res["groupnorm"] = groupnorm_sites(dev, randn, f32n)
+    res["groupnorm"]["batch_invariance"] = k1_batch_invariance(randn, f32n)
 
     # K2: ds1 spatial self-attention, the same with a mask, text cross-attention (Lk=77)
     errs = []
@@ -1953,6 +2012,50 @@ def _pad_context(batch: dict, nmax: int) -> dict:
     return out
 
 
+def vae_batch_layers(vae, frames_a, frames_b, shared: int) -> dict:
+    """The VAE encoder's layer-by-layer dependence on its batch: frames_a and
+    frames_b hold the same first `shared` frames beside other frames; every
+    GroupNorm, conv and block output on those frames is compared between the
+    two encodes (relative L2). Up to the first leaf layer whose output
+    differs, every input on the shared frames is the same bits, so that
+    layer's own result depends on the batch. Returns the rows in order, the
+    first leaf that differs at all and the first leaf above 1e-3."""
+    from camc2v_tpu_torch.nn.layers import Conv, GroupNorm32
+    from camc2v_tpu_torch.nn.vae import AEAttnBlock, AEResnetBlock
+
+    kinds = {GroupNorm32: "GroupNorm (K1)", Conv: "conv (cuDNN)", AEResnetBlock: "block", AEAttnBlock: "block"}
+    mods = [(n, m, kinds[type(m)]) for n, m in vae.named_modules() if type(m) in kinds and not n.startswith("decoder")]
+    saved, rows = {}, []
+
+    def keep(name):
+        def hook(_m, _i, o):
+            saved[name] = o[:shared].clone()
+        return hook
+
+    def compare(name, kind):
+        def hook(_m, _i, o):
+            a = saved.pop(name).float()
+            rows.append(dict(layer=name, kind=kind, rel_l2=((o[:shared].float() - a).norm() / a.norm()).item()))
+        return hook
+
+    for frames, make in ((frames_a, lambda n, k: keep(n)), (frames_b, compare)):
+        handles = [m.register_forward_hook(make(n, k)) for n, m, k in mods]
+        try:
+            vae.encode(frames)
+        finally:
+            for h in handles:
+                h.remove()
+    leaves = [r for r in rows if r["kind"] != "block"]
+    first = next((r for r in leaves if r["rel_l2"] > 0), None)
+    first_1e3 = next((r for r in leaves if r["rel_l2"] > 1e-3), None)
+    top = [r for r in rows if r["layer"].count(".") == 1 or r["layer"] == "quant_conv"]
+    print(f"  VAE encoder beside 2 vs 4 context frames, the same {shared} frames, rel_l2 after each layer: "
+          + ", ".join(f"{r['layer'].split('.', 1)[-1]} {r['rel_l2']:.2e}" for r in top), flush=True)
+    print(f"  VAE batch dependence: first layer whose output differs {first}; first above 1e-3 {first_1e3}",
+          flush=True)
+    return dict(top_layers=top, first_differing=first, first_above_1e3=first_1e3)
+
+
 def train_run_phase(dev, device_line: str) -> dict:
     """Phase 9: the training entry point on the flagship yaml (see the
     module docstring)."""
@@ -2094,6 +2197,8 @@ def train_run_phase(dev, device_line: str) -> dict:
         frames = video.shape[1]
         vae_rel = rel(model.encode_first_stage(torch.cat([video, padded["cond_frames"]], 1))[:, :frames],
                       model.encode_first_stage(torch.cat([video, batch["cond_frames"]], 1))[:, :frames])
+        vae_layers = vae_batch_layers(model.vae, torch.cat([video, batch["cond_frames"]], 1)[0],
+                                      torch.cat([video, padded["cond_frames"]], 1)[0], frames)
     rel_l, rel_b, rel_c = (abs(lp - lu) / abs(lu)).item(), rel(branch_p, branch_u), rel(cp["c_concat"], cu["c_concat"])
     print(f"  padded (2 of 4 slots) vs unpadded, kernels on: loss {lp.item():.6f} vs {lu.item():.6f} rel={rel_l:.3e}, "
           f"c_concat's latent branch on the same latents rel_l2={rel_b:.3e} (tol 1e-3 each); c_concat end to end "
@@ -2106,7 +2211,157 @@ def train_run_phase(dev, device_line: str) -> dict:
     torch.cuda.empty_cache()
     return dict(device=device_line, runs=runs, launches=launches, csv_rows=len(rows) - 1,
                 padded_vs_unpadded=dict(loss_rel=rel_l, latent_branch_rel_l2=rel_b, c_concat_rel_l2=rel_c,
-                                        vae_batch_rel_l2=vae_rel))
+                                        vae_batch_rel_l2=vae_rel), vae_batch_layers=vae_layers)
+
+
+CAMERA_CFG_RECIPE = dict(BENCH_RECIPE, camera_cfg=1.5, camera_cfg_scheduler="cosine")  # the 02 CLI's recipe
+GEN02_PATH = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash")
+
+
+def _guided_request(model, batch, recipe=CAMERA_CFG_RECIPE, **prepare):
+    """(z, cond, the guided closure) of one request as `sample` builds them."""
+    z, cond = model.prepare_batch(batch, prefetch_uncond=True, **prepare)
+    uc = model.build_uncond(cond, z.shape[0], batch["video"].shape[2:4])
+    cond.pop("_uncond")
+    fn = model.build_guided_fn(cond, uc, model.get_fs(batch), guidance_scale=recipe["guidance_scale"],
+                               guidance_rescale=recipe["guidance_rescale"], camera_cfg=recipe["camera_cfg"],
+                               camera_cfg_scheduler=recipe["camera_cfg_scheduler"])
+    return z, cond, fn
+
+
+def generation_02_phase(dev, device_line: str) -> dict:
+    """Phase 10: CamContextI2V-256 generation as the 02 CLI runs it (see the
+    module docstring), on the default path."""
+    from camc2v_tpu_torch import ops, presets
+    from camc2v_tpu_torch.core.schedules import DDIMSchedule
+    from camc2v_tpu_torch.models import sampler as sm
+
+    model = presets.build("camcontexti2v_256", seed=4321)
+    make = lambda b, seed: camcontext_batch(model, b, seed, dev)  # noqa: E731
+    plan = ((1, 81, CAMERA_CFG_RECIPE), (1, 82, CAMERA_CFG_RECIPE), (2, 92, CAMERA_CFG_RECIPE))
+    ops.reset_launch_counts()
+    requests = generate(model, make, "camcontexti2v camera-cfg", device_line, plan=plan)
+    launches = dict(ops.LAUNCHES)
+    steps = CAMERA_CFG_RECIPE["ddim_steps"]
+    for r in requests:
+        r["unet_calls_per_step"] = len(r["unet_calls_ms"]) / steps
+    print(f"[10 launches] camera-CFG requests {launches}; UNet calls per step "
+          f"{[r['unet_calls_per_step'] for r in requests]}", flush=True)
+    if not all(launches[n] > 0 for n in GEN02_PATH):
+        _fail(f"generation 02: a kernel of the path never launched: {launches}")
+    if any(r["unet_calls_per_step"] != 3 for r in requests):
+        _fail("generation 02: camera CFG did not run three UNet calls a step")
+
+    out = dict(requests=requests, launches=launches)
+    with torch.no_grad():
+        # (b) one guided evaluation and the camera-free pass alone, kernels vs plain twins
+        batch = make(1, 83)
+        z, cond, fn = _guided_request(model, batch)
+        x = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        t = torch.full((1,), 500, dtype=torch.int32, device=dev)
+        parts = {"kernels": [], "twins": []}
+        real = model.apply_model
+
+        def recorded(key):
+            def call(*a, **k):
+                parts[key].append(real(*a, **k))
+                return parts[key][-1]
+            return call
+
+        model.apply_model = recorded("kernels")
+        try:
+            got = fn(x, t, step=500)
+            with ops.plain_twins():
+                model.apply_model = recorded("twins")
+                ref = fn(x, t, step=500)
+        finally:
+            del model.apply_model
+        # CFG 7.5 scales the calls' own differences up against the guided output
+        # (7.5 e_c - 6.5 e_u + ...): each UNet call is held to phase 4's tolerance
+        for name, a, b in zip(("conditional", "unconditional", "camera-free"), parts["kernels"], parts["twins"]):
+            _rel_check(f"guided evaluation at t=500, its {name} UNet call", a, b)
+        guided_rel = ((got - ref).norm() / ref.norm()).item()
+        print(f"  guided evaluation with camera CFG 1.5 (cosine) at t=500, {len(parts['kernels'])} UNet calls: "
+              f"kernels vs plain twins rel_l2={guided_rel:.3e} (the calls' differences through CFG 7.5), "
+              f"finite={bool(torch.isfinite(got).all())}", flush=True)
+        if len(parts["kernels"]) != 3 or not torch.isfinite(got).all():
+            _fail("generation 02: the guided evaluation did not run its three UNet calls or is not finite")
+        out["guided_rel_l2"] = guided_rel
+        del parts
+        cond_nc = {k: v for k, v in cond.items() if k != "camera"}
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        got = model.apply_model(x, t, cond_nc, model.get_fs(batch))
+        torch.cuda.synchronize()
+        moved = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        with ops.plain_twins():
+            ref = model.apply_model(x, t, cond_nc, model.get_fs(batch))
+        _rel_check("the camera-free pass alone", got, ref)
+        print(f"  camera-free pass launches {moved}", flush=True)
+        if moved["epipolar_flash"] != 0 or moved["temporal_attention"] <= 0:
+            _fail(f"generation 02: the camera-free pass launched K6 {moved['epipolar_flash']} times, "
+                  f"K3 {moved['temporal_attention']}")
+        out["camera_free_launches"] = moved
+        del got, ref, cond, cond_nc, fn
+
+        # (c) the latent surgery: paste frame 5 and overlap frames 0-1 from the clean latents
+        g = torch.Generator(device=dev).manual_seed(84)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat, cond = model.sample(make(1, 84), generator=g, paste_cond_frame=True, num_overlap=2,
+                                 cond_frame_index=5, decode=False, return_cond=True, **CAMERA_CFG_RECIPE)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        z0 = cond["origin_z0"]
+        exact = bool(torch.equal(lat[:, 5], z0[:, 5]) and torch.equal(lat[:, :2], z0[:, :2]))
+        finite = bool(torch.isfinite(lat).all())
+        print(f"  latent surgery (paste frame 5, overlap 2, batch 1): {sec:.3f} s, pasted and overlap frames equal "
+              f"origin_z0 bit for bit: {exact}, finite: {finite}, other frames' rel distance from origin_z0 "
+              f"{((lat[:, 2:5] - z0[:, 2:5]).norm() / z0[:, 2:5].norm()).item():.3f}", flush=True)
+        if not (exact and finite):
+            _fail("generation 02: the latent surgery did not keep the pasted and overlap frames")
+        out["surgery"] = dict(seconds=sec, exact=exact)
+        del lat, cond
+
+        # (d) the ancestral loop: the last 25 DDPM steps through the guided closure
+        batch = make(1, 85)
+        z, cond, fn = _guided_request(model, batch)
+        x_T = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(85), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = sm.p_sample_loop(model.schedule, x_T, fn, t_start=25, generator=torch.Generator(device=dev).manual_seed(86))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        finite = bool(torch.isfinite(lat).all())
+        print(f"  ancestral p_sample_loop, t_start=25, batch 1: {sec:.3f} s ({sec / 25 * 1e3:.1f} ms a step), "
+              f"finite: {finite}, std {lat.std().item():.4f}", flush=True)
+        if not finite:
+            _fail("generation 02: the ancestral loop's output is not finite")
+        out["ancestral"] = dict(seconds=sec, steps=25)
+        del lat, cond, fn
+
+        # (e) img2img: the clean latents noised to DDIM step 12 of 25, then decoded from there
+        batch = make(1, 87)
+        z, cond, fn = _guided_request(model, batch, need_full_z=True)
+        ddim = DDIMSchedule.create(model.schedule, 25, CAMERA_CFG_RECIPE["timestep_spacing"],
+                                   CAMERA_CFG_RECIPE["ddim_eta"])
+        noise = torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(87), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = sm.ddim_stochastic_encode(ddim, cond["origin_z0"], 12, noise)
+        lat = sm.ddim_decode(ddim, x, fn, 12, generator=torch.Generator(device=dev).manual_seed(88))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        finite = bool(torch.isfinite(lat).all())
+        print(f"  img2img: encoded to DDIM step 12 of 25 and decoded, batch 1: {sec:.3f} s, finite: {finite}, "
+              f"rel distance from the clean latents {((lat - z).norm() / z.norm()).item():.3f}", flush=True)
+        if not finite:
+            _fail("generation 02: the img2img output is not finite")
+        out["img2img"] = dict(seconds=sec, steps=12)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
@@ -2252,10 +2507,20 @@ def main() -> None:
     with _switches("0"):
         train_run = train_run_phase(dev, device_line)
 
+    print("[10 generate-02] CamContextI2V-256 generation as 02_generate_videos.py runs it: camera CFG 1.5 "
+          "(cosine), the latent surgery, the ancestral loop, img2img", flush=True)
+    with _switches("0"):
+        gen02 = generation_02_phase(dev, device_line)
+
+    first = train_run["vae_batch_layers"]["first_differing"]
+    invariant = all(r["bit_identical"] for r in checks["groupnorm"]["batch_invariance"].values())
+    if first is not None and first["kind"].startswith("GroupNorm") and not invariant:
+        _fail(f"the VAE's batch dependence starts at a GroupNorm ({first}) and K1 is not batch-invariant")
+
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
                        launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
-                       kernels=checks), f, indent=1, default=str)
+                       generation_02=gen02, kernels=checks), f, indent=1, default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -2282,7 +2547,7 @@ def main() -> None:
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=routes["launches"][name] if name in new else launches[name],
              launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
-             launches_train_run=train_run["launches"][name],
+             launches_train_run=train_run["launches"][name], launches_generation_02=gen02["launches"][name],
              **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]

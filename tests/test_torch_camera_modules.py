@@ -201,9 +201,8 @@ def test_unported_variants_raise():
         CamContextI2V(dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, camera_mode="motionctrl")))
     with pytest.raises(NotImplementedError, match="cross-normalisation"):
         CamContextI2V(dataclasses.replace(cfg, use_cross_normalization=True))
-    model = CamContextI2V(cfg, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="camera_cfg"):
-        model.sample({}, camera_cfg=2.0)
+    with pytest.raises(NotImplementedError, match="Plücker input"):  # camera CFG is ported
+        CamContextI2V(dataclasses.replace(cfg, adaptor=dataclasses.replace(cfg.adaptor, use_plucker_embedding=True)))
     with pytest.raises(NotImplementedError, match="multi_cond_strategy"):  # padded contexts are ported
         CamContextI2V(dataclasses.replace(cfg, multi_cond_strategy="max"))
 

@@ -10,9 +10,10 @@ can reach, with the kernels' loops written out in PyTorch:
     GroupNorm site of the model: every row of every sample falls in exactly
     one block's slice and one thread's row group, the threads cover a row's
     16-byte pieces, a block's shared memory stays under 227 KB (and leaves
-    two blocks an SM on the two-launch path), a cluster path's clusters fit
-    the card at once at the size the plan's rule gives, and the path is the
-    one the sizes give (one launch at every 4-D UNet site and the 5-D ds8
+    two blocks an SM on the two-launch path), the cluster size or slices
+    are the plan's rule's and follow from a sample's shape alone (the same
+    plan at any batch size, so a sample's bits do not depend on its batch),
+    and the path is the one the sizes give (one launch at every 4-D UNet site and the 5-D ds8
     level, two at the larger 5-D levels and the VAE's large maps);
     the plan's constants are the sources';
   * K1's arithmetic: each slice's local two-pass (per-thread sums over its
@@ -87,7 +88,7 @@ K1_SWEEP += [(b, 16 * 16, 1280, 2, 132, "cluster") for b in (1, 2)]
 K1_SWEEP += [(16, 256 * 256, 128, 2, 132, "two"), (16, 128 * 128, 256, 2, 132, "two"), (16, 64 * 64, 512, 2, 132, "two"),
              (16, 32 * 32, 512, 2, 132, "cluster"), (16, 1024, 320, 4, 132, "cluster"), (2, 4096, 640, 4, 132, "two"),
              (3, 63, 320, 2, 132, "cluster"), (1, 5 * 31 * 33, 640, 2, 108, "two"), (4, 1600, 128, 2, 78, "cluster"),
-             (8, 1, 1280, 2, 132, "cluster"), (64, 1024, 320, 2, 132, "two")]
+             (8, 1, 1280, 2, 132, "cluster"), (64, 1024, 320, 2, 132, "cluster")]
 
 
 @pytest.mark.parametrize("n,rows,c,elem,sms,path", K1_SWEEP, ids=[str(p[:5]) for p in K1_SWEEP])
@@ -108,26 +109,24 @@ def test_k1_plan_covers_every_row_once(n, rows, c, elem, sms, path):
     # shared memory: the largest slice's block, under 227 KB with the static part
     assert plan.smem == gn.k1_smem(-(-rows // plan.slices), c, elem, plan.rgroups, 32)
     assert plan.smem + gn.K1_STATIC_SMEM <= gn.K1_SMEM_MAX
+    # a sample's slices follow from its shape alone: the same bits alone and inside any batch
+    for other in (1, 4, 2 * n + 1):
+        assert gn.norm_plan(other, rows, c, elem, 32, sms)[:5] == plan[:5]
     if plan.cluster:
-        # the n clusters run at once; the smallest size that spreads the launch over half the SMs, else the largest
+        # the fewest blocks (at least K1_MIN_SLICES) that let two share an SM, else the fewest that fit
         assert plan.slices <= gn.K1_MAX_CLUSTER and plan.apply is None
-        fits = [k for k in range(1, min(gn.K1_MAX_CLUSTER, rows) + 1)
-                if gn._cluster_fits(n, k, gn.k1_smem(-(-rows // k), c, elem, plan.rgroups, 32), sms)]
-        assert plan.slices in fits
-        assert plan.slices == min([k for k in fits if 2 * n * k >= sms] or [max(fits)])
-        per_sm = 2 if plan.smem <= gn.K1_BLOCK_SMEM else 1
-        assert n * plan.slices <= per_sm * sms * gn.K1_CLUSTER_FILL
+        sizes = range(min(gn.K1_MIN_SLICES, rows), min(gn.K1_MAX_CLUSTER, rows) + 1)
+        fits = [k for k in sizes if gn.k1_smem(-(-rows // k), c, elem, plan.rgroups, 32) + gn.K1_STATIC_SMEM
+                <= gn.K1_SMEM_MAX]
+        two = [k for k in fits if gn.k1_smem(-(-rows // k), c, elem, plan.rgroups, 32) <= gn.K1_BLOCK_SMEM]
+        assert plan.slices == (two or fits)[0]
     else:
-        # two blocks an SM; as few slices as the shared memory and half the SMs allow, else whole waves
+        # two blocks an SM; as few slices as the shared memory allows, and at least half the SMs' worth
         assert 2 * (plan.smem + gn.K1_STATIC_SMEM + 1024) <= SM_SMEM
         assert plan.apply == gn.temporal_plan(n, rows, c, elem, sms)
-        slots = gn.K1_BLOCKS_PER_SM * sms
         fewest = max(-(-rows // ((gn.K1_BLOCK_SMEM - gn.k1_smem(0, c, elem, plan.rgroups, 32)) // (c * elem))),
-                     -(-sms // (2 * n)))
-        if n * fewest <= slots:
-            assert plan.slices == min(rows, fewest)
-        else:
-            assert plan.slices >= fewest and -(-n * plan.slices // slots) * slots - n * plan.slices < n
+                     -(-sms // 2))
+        assert plan.slices == min(rows, fewest)
 
 
 def test_k1_plan_constants_are_the_sources():

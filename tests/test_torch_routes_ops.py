@@ -362,14 +362,16 @@ def test_dpmpp_2m_sample_matches_jax():
 
 
 def test_sample_defaults_match_jax():
-    """The keyword defaults `sample` shares with the JAX package's."""
+    """`sample` takes every keyword of the JAX package's, with its default;
+    the only differences: the JAX `params` and `rng` (the port's weights live
+    in the module, its draws come from `generator`) and the port's test hooks."""
     from camc2v_tpu.models.dynamicrafter import DynamiCrafter as JDC
 
     from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter as TDC
 
     jsig, tsig = inspect.signature(JDC.sample).parameters, inspect.signature(TDC.sample).parameters
-    shared = [n for n, p in tsig.items() if p.kind == p.KEYWORD_ONLY and n in jsig]
-    assert {"ddim_steps", "ddim_eta", "sampler", "guidance_scale", "guidance_rescale", "timestep_spacing",
-            "camera_cfg", "decode"} <= set(shared)
-    for n in shared:
-        assert tsig[n].default == jsig[n].default, n
+    jkw = {n: p.default for n, p in jsig.items() if n not in ("self", "params", "batch", "rng")}
+    tkw = {n: p.default for n, p in tsig.items() if n not in ("self", "batch", "generator", "x_T", "step_noise",
+                                                                "perturb_noise")}
+    assert tkw == jkw
+    assert all(tsig[n].kind == tsig[n].KEYWORD_ONLY for n in tkw) and tsig["generator"].default is None
