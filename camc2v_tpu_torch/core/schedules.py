@@ -3,12 +3,13 @@
 Tables are built on the host in float64 and kept as float32 numpy arrays,
 exactly as the JAX package freezes them into f32 device arrays, so every
 per-step scalar of the sampler is a float32 value known before the loop
-starts. Everything of the JAX module: the DDPM buffers for the `eps`, `x0`
-and `v` parameterizations, the DDIM tables with the dynamic-rescale ones,
-`timestep_embedding`, `rescale_noise_cfg`, `q_sample`, `get_v`, and the
-sampler's `predict_*` and `q_posterior`. The functions of `t` gather from a
-table by a device tensor of timesteps; a sampler that knows the step on the
-host reads the tables' float32 entries directly.
+starts. The DDPM buffers for the `eps`, `x0` and `v` parameterizations that
+the port reads, the DDIM tables with the dynamic-rescale ones,
+`timestep_embedding`, `rescale_noise_cfg`, and the training targets
+`q_sample` and `get_v`, which gather from a table by a device tensor of
+timesteps. The samplers' conversions (`predict_*`, `q_posterior`) take the
+step's timestep as a host int, as the loops know it, and read the tables'
+float32 entries directly.
 """
 
 from __future__ import annotations
@@ -67,22 +68,19 @@ def make_ddim_timesteps(method: str, num_ddim_timesteps: int, num_ddpm_timesteps
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Every DDPM buffer of the reference (ddpm3d.py:125-188), as float32
-    host arrays."""
+    """The DDPM buffers of the reference (ddpm3d.py:125-188) that the port
+    reads, as float32 host arrays."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
     alphas_cumprod_prev: np.ndarray
     sqrt_alphas_cumprod: np.ndarray
     sqrt_one_minus_alphas_cumprod: np.ndarray
-    log_one_minus_alphas_cumprod: np.ndarray
     sqrt_recip_alphas_cumprod: np.ndarray
     sqrt_recipm1_alphas_cumprod: np.ndarray
-    posterior_variance: np.ndarray
     posterior_log_variance_clipped: np.ndarray
     posterior_mean_coef1: np.ndarray
     posterior_mean_coef2: np.ndarray
-    lvlb_weights: np.ndarray
 
     @property
     def num_timesteps(self) -> int:
@@ -90,29 +88,17 @@ class DiffusionSchedule:
 
     @classmethod
     def create(cls, timesteps: int = 1000, beta_schedule: str = "linear", linear_start: float = 1e-4,
-               linear_end: float = 2e-2, cosine_s: float = 8e-3, given_betas: Optional[np.ndarray] = None,
-               rescale_betas_zero_snr: bool = False, v_posterior: float = 0.0,
+               linear_end: float = 2e-2, cosine_s: float = 8e-3, rescale_betas_zero_snr: bool = False,
                parameterization: str = "eps") -> "DiffusionSchedule":
-        betas = (np.asarray(given_betas, dtype=np.float64) if given_betas is not None
-                 else make_beta_schedule(beta_schedule, timesteps, linear_start, linear_end, cosine_s))
+        if parameterization not in ("eps", "x0", "v"):
+            raise NotImplementedError(f"parameterization '{parameterization}'")
+        betas = make_beta_schedule(beta_schedule, timesteps, linear_start, linear_end, cosine_s)
         if rescale_betas_zero_snr:
             betas = rescale_zero_terminal_snr(betas)
         alphas = 1.0 - betas
         alphas_cumprod = np.cumprod(alphas, axis=0)
         alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
-        posterior_variance = ((1 - v_posterior) * betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
-                              + v_posterior * betas)
-        if parameterization == "eps":
-            # posterior_variance[0] == 0: the inf is overwritten by lvlb[0] = lvlb[1] below
-            with np.errstate(divide="ignore"):
-                lvlb = betas**2 / (2 * posterior_variance * alphas * (1 - alphas_cumprod))
-        elif parameterization == "x0":
-            lvlb = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
-        elif parameterization == "v":
-            lvlb = np.ones_like(betas)
-        else:
-            raise NotImplementedError(f"parameterization '{parameterization}'")
-        lvlb[0] = lvlb[1]
+        posterior_variance = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
         if parameterization != "v":
             sqrt_recip = np.sqrt(1.0 / alphas_cumprod)
             sqrt_recipm1 = np.sqrt(1.0 / alphas_cumprod - 1)
@@ -125,14 +111,11 @@ class DiffusionSchedule:
             alphas_cumprod_prev=f32(alphas_cumprod_prev),
             sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
-            log_one_minus_alphas_cumprod=f32(np.log(1.0 - alphas_cumprod)),
             sqrt_recip_alphas_cumprod=f32(sqrt_recip),
             sqrt_recipm1_alphas_cumprod=f32(sqrt_recipm1),
-            posterior_variance=f32(posterior_variance),
             posterior_log_variance_clipped=f32(np.log(np.maximum(posterior_variance, 1e-20))),
             posterior_mean_coef1=f32(betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
             posterior_mean_coef2=f32((1.0 - alphas_cumprod_prev) * np.sqrt(alphas) / (1.0 - alphas_cumprod)),
-            lvlb_weights=f32(lvlb),
         )
 
 
@@ -225,24 +208,23 @@ def get_v(schedule: DiffusionSchedule, x: torch.Tensor, noise: torch.Tensor, t: 
             - extract(schedule.sqrt_one_minus_alphas_cumprod, t, x.dim()) * x)
 
 
-def predict_start_from_noise(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor, noise: torch.Tensor):
-    """x0-hat from an eps prediction. reference: ddpm3d.py:233-238."""
-    return (extract(schedule.sqrt_recip_alphas_cumprod, t, x_t.dim()) * x_t
-            - extract(schedule.sqrt_recipm1_alphas_cumprod, t, x_t.dim()) * noise)
+def predict_start_from_noise(schedule: DiffusionSchedule, x_t: torch.Tensor, step: int, noise: torch.Tensor):
+    """x0-hat from an eps prediction at the host timestep `step`. reference: ddpm3d.py:233-238."""
+    return (float(schedule.sqrt_recip_alphas_cumprod[step]) * x_t
+            - float(schedule.sqrt_recipm1_alphas_cumprod[step]) * noise)
 
 
-def q_posterior(schedule: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor):
-    """(mean, clipped log-variance) of q(x_{t-1} | x_t, x0). reference: ddpm3d.py:254-261."""
-    mean = (extract(schedule.posterior_mean_coef1, t, x_t.dim()) * x_start
-            + extract(schedule.posterior_mean_coef2, t, x_t.dim()) * x_t)
-    return mean, extract(schedule.posterior_log_variance_clipped, t, x_t.dim())
+def q_posterior(schedule: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor, step: int):
+    """(mean, clipped log-variance) of q(x_{t-1} | x_t, x0) at the host
+    timestep `step`; the log-variance is a float32 host scalar. reference:
+    ddpm3d.py:254-261."""
+    mean = float(schedule.posterior_mean_coef1[step]) * x_start + float(schedule.posterior_mean_coef2[step]) * x_t
+    return mean, schedule.posterior_log_variance_clipped[step]
 
 
-def predict_start_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor, v: torch.Tensor):
-    return (extract(schedule.sqrt_alphas_cumprod, t, x_t.dim()) * x_t
-            - extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_t.dim()) * v)
+def predict_start_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, step: int, v: torch.Tensor):
+    return float(schedule.sqrt_alphas_cumprod[step]) * x_t - float(schedule.sqrt_one_minus_alphas_cumprod[step]) * v
 
 
-def predict_eps_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor, v: torch.Tensor):
-    return (extract(schedule.sqrt_alphas_cumprod, t, x_t.dim()) * v
-            + extract(schedule.sqrt_one_minus_alphas_cumprod, t, x_t.dim()) * x_t)
+def predict_eps_from_z_and_v(schedule: DiffusionSchedule, x_t: torch.Tensor, step: int, v: torch.Tensor):
+    return float(schedule.sqrt_alphas_cumprod[step]) * v + float(schedule.sqrt_one_minus_alphas_cumprod[step]) * x_t

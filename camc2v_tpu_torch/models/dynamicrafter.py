@@ -369,15 +369,13 @@ class DynamiCrafter(nn.Module):
         ('cosine'). cfg_interval=(lo, hi): steps whose timestep is outside
         [lo, hi] run the conditional call alone (on the cond as given).
 
-        The closure is `fn(x, t, step=None)`; the samplers pass the step's
-        timestep as the host int `step` (`fn.host_step`), so neither the
-        cosine weight nor the interval reads t back from the device. A
-        caller that omits it gets the cosine weight computed on the device
-        and, with cfg_interval, one read of t[0]."""
+        The closure is `fn(x, t, step)`, t the step's timestep on the device
+        and `step` the same as a host int, so neither the cosine weight nor
+        the interval reads t back from the device."""
         cond = _model_inputs(cond)
         cond_entry = cond
         if uc is None or guidance_scale == 1.0:
-            return lambda x, t: self.apply_model(x, t, cond, fs)
+            return lambda x, t, step: self.apply_model(x, t, cond, fs)
         uc = _model_inputs(uc)
         b = cond["c_concat"].shape[0]
         if uc["c_crossattn"].shape != cond["c_crossattn"].shape and ops.switch_on("CAMC2V_FUSED_CFG"):
@@ -405,34 +403,26 @@ class DynamiCrafter(nn.Module):
                 raise NotImplementedError(camera_cfg_scheduler)
             cond_nc = {k: v for k, v in cond.items() if k != "camera"}
 
-        def guided(x, t, step=None):
+        def guided(x, t, step):
             e_c, e_u = eps_pair(x, t)
             combined = e_u + guidance_scale * (e_c - e_u)
             if do_camera_cfg:
                 e_nc = self.apply_model(x, t, cond_nc, fs)
-                if camera_cfg_scheduler == "constant":
-                    w = np.float32(1.0)
-                elif step is not None:
-                    w = np.cos((np.float32(1.0) - np.float32(step) / np.float32(999.0)) * np.float32(math.pi / 2))
-                else:
-                    w = torch.cos((1.0 - t[0].float() / 999.0) * (math.pi / 2))
-                coef = (camera_cfg - 1.0) * w if torch.is_tensor(w) else float(np.float32(camera_cfg - 1.0) * w)
-                combined = combined + coef * (e_c - e_nc)
+                w = np.float32(1.0) if camera_cfg_scheduler == "constant" else np.cos(
+                    (np.float32(1.0) - np.float32(step) / np.float32(999.0)) * np.float32(math.pi / 2))
+                combined = combined + float(np.float32(camera_cfg - 1.0) * w) * (e_c - e_nc)
             if guidance_rescale > 0.0:
                 combined = rescale_noise_cfg(combined, e_c, guidance_rescale)
             return combined
 
         if cfg_interval is None:
-            fn = guided
-        else:
-            lo, hi = cfg_interval
+            return guided
+        lo, hi = cfg_interval
 
-            def fn(x, t, step=None):
-                s = int(t[0]) if step is None else step
-                if lo <= s <= hi:
-                    return guided(x, t, step=s)
-                return self.apply_model(x, t, cond_entry, fs)
-        fn.host_step = True
+        def fn(x, t, step):
+            if lo <= step <= hi:
+                return guided(x, t, step)
+            return self.apply_model(x, t, cond_entry, fs)
         return fn
 
     # ----------------------------------------------------------------- sample

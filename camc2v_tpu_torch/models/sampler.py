@@ -6,10 +6,10 @@ Python loops over the timestep tables. Every per-step coefficient is a
 float32 value read from the host tables before it is used, and the step
 timestep is a tensor filled on the device, so a loop never waits for the
 device (no `.item()`, no `.cpu()`). Guidance lives in the model-provided
-`model_out_fn(x, t)` closure (`DynamiCrafter.build_guided_fn`); a closure
-whose `host_step` attribute is true is also handed the step's timestep as a
-host int (`step=`), which is how camera CFG's scheduler and `cfg_interval`
-read the timestep without a sync.
+`model_out_fn(x, t, step)` closure (`DynamiCrafter.build_guided_fn`): t is
+the step's timestep as a (B,) device tensor and `step` the same as a host
+int, which is how camera CFG's scheduler and `cfg_interval` read the
+timestep without a sync.
 
 Random draws come from the caller's `generator`, or, in their place, from
 `step_noise`: one record per step, in loop order, of that step's
@@ -33,9 +33,10 @@ from typing import Callable, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from camc2v_tpu_torch.core.schedules import DDIMSchedule, DiffusionSchedule
+from camc2v_tpu_torch.core.schedules import (DDIMSchedule, DiffusionSchedule, predict_eps_from_z_and_v,
+                                             predict_start_from_noise, predict_start_from_z_and_v, q_posterior)
 
-ModelOutFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+ModelOutFn = Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor]
 StepDraws = Union[torch.Tensor, Mapping[str, torch.Tensor]]
 
 f32 = np.float32
@@ -90,19 +91,20 @@ def _timestep(b: int, step: int, device) -> torch.Tensor:
     return torch.full((b,), int(step), dtype=torch.int32, device=device)
 
 
-def _model_out(fn: ModelOutFn, x: torch.Tensor, t: torch.Tensor, step: int) -> torch.Tensor:
-    return fn(x, t, step=int(step)) if getattr(fn, "host_step", False) else fn(x, t)
-
-
 def _q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, step: int, noise: torch.Tensor) -> torch.Tensor:
     """`q_sample` at one timestep known on the host."""
     return float(schedule.sqrt_alphas_cumprod[step]) * x0 + float(schedule.sqrt_one_minus_alphas_cumprod[step]) * noise
 
 
-def _v_to_eps_x0(schedule: DiffusionSchedule, x: torch.Tensor, step: int, v: torch.Tensor):
-    """(eps, x0) from a v prediction at one timestep known on the host."""
-    a, s = float(schedule.sqrt_alphas_cumprod[step]), float(schedule.sqrt_one_minus_alphas_cumprod[step])
-    return a * v + s * x, a * x - s * v
+def _eps_x0(ddim: DDIMSchedule, i: int, schedule: Optional[DiffusionSchedule], step: int, x, model_output,
+            opt: SamplerOptions):
+    """(eps, x0-hat) of the model output at DDIM table position i (timestep
+    `step`): from `v` through the DDPM tables, from `eps` through the DDIM
+    ones."""
+    if opt.parameterization == "v":
+        return (predict_eps_from_z_and_v(schedule, x, step, model_output),
+                predict_start_from_z_and_v(schedule, x, step, model_output))
+    return model_output, (x - float(ddim.sqrt_one_minus_alphas[i]) * model_output) / float(np.sqrt(ddim.alphas[i]))
 
 
 def _dropout(noise: torch.Tensor, opt: SamplerOptions, draws: _Draws) -> torch.Tensor:
@@ -190,12 +192,8 @@ def ddim_sample(ddim: DDIMSchedule, x_T: torch.Tensor, model_out_fn: ModelOutFn,
             src = scene_frames if scene_frames is not None else origin_z0
             m = scene_mask * float(step >= opt.noise_shaping_min_t)
             x = _q_sample(schedule, src, step, renoise) * m + (1.0 - m) * x
-        model_output = _model_out(model_out_fn, x, t, step)
-        if opt.parameterization == "v":
-            e_t, pred_x0 = _v_to_eps_x0(schedule, x, step, model_output)
-        else:
-            e_t = model_output
-            pred_x0 = (x - float(ddim.sqrt_one_minus_alphas[i]) * e_t) / float(np.sqrt(ddim.alphas[i]))
+        model_output = model_out_fn(x, t, step)
+        e_t, pred_x0 = _eps_x0(ddim, i, schedule, step, x, model_output, opt)
         if ddim.scale_arr is not None:
             # dynamic rescale (reference ddim.py:316-320): undo one step of the train-time ramp
             pred_x0 = pred_x0 * float(ddim.scale_arr_prev[i] / ddim.scale_arr[i])
@@ -232,21 +230,20 @@ def p_sample_loop(schedule: DiffusionSchedule, x_T: torch.Tensor, model_out_fn: 
         i = n - 1 - idx
         t = _timestep(b, i, x.device)
         draws.at(idx)
-        model_output = _model_out(model_out_fn, x, t, i)
+        model_output = model_out_fn(x, t, i)
         if opt.parameterization == "x0":
             x_recon = model_output
         else:
-            x_recon = (float(schedule.sqrt_recip_alphas_cumprod[i]) * x
-                       - float(schedule.sqrt_recipm1_alphas_cumprod[i]) * model_output)
+            x_recon = predict_start_from_noise(schedule, x, i, model_output)
         if clip_denoised:
             x_recon = x_recon.clamp(-1.0, 1.0)
-        mean = float(schedule.posterior_mean_coef1[i]) * x_recon + float(schedule.posterior_mean_coef2[i]) * x
+        mean, log_var = q_posterior(schedule, x_recon, x, i)
         noise = draws.normal("noise", x.shape)
         if opt.temperature != 1.0:
             noise = noise * opt.temperature
         noise = _dropout(noise, opt, draws)
         if i != 0:  # no noise at the final step
-            x = mean + float(np.exp(f32(0.5) * schedule.posterior_log_variance_clipped[i])) * noise
+            x = mean + float(np.exp(f32(0.5) * log_var)) * noise
         else:
             x = mean
         if blend_mask is not None:
@@ -301,11 +298,8 @@ def dpmpp_2m_sample(ddim: DDIMSchedule, x_T: torch.Tensor, model_out_fn: ModelOu
         draws.at(idx)
         if opt.num_overlap > 0:
             x = torch.where(overlap_sel, _q_sample(schedule, origin_z0, step, draws.normal("overlap", x.shape)), x)
-        model_output = _model_out(model_out_fn, x, t, step)
-        if opt.parameterization == "v":
-            pred_x0 = _v_to_eps_x0(schedule, x, step, model_output)[1]
-        else:
-            pred_x0 = (x - float(ddim.sqrt_one_minus_alphas[i]) * model_output) / float(np.sqrt(ddim.alphas[i]))
+        model_output = model_out_fn(x, t, step)
+        pred_x0 = _eps_x0(ddim, i, schedule, step, x, model_output, opt)[1]
         if ddim.scale_arr is not None:
             pred_x0 = pred_x0 * float(ddim.scale_arr_prev[i] / ddim.scale_arr[i])
         if opt.paste_cond_frame:
@@ -333,12 +327,8 @@ def ddim_decode(ddim: DDIMSchedule, x_latent: torch.Tensor, model_out_fn: ModelO
         step = int(ddim.timesteps[i])
         t = _timestep(b, step, x.device)
         draws.at(idx)
-        model_output = _model_out(model_out_fn, x, t, step)
-        if opt.parameterization == "v":
-            e_t, pred_x0 = _v_to_eps_x0(schedule, x, step, model_output)
-        else:
-            e_t = model_output
-            pred_x0 = (x - float(ddim.sqrt_one_minus_alphas[i]) * e_t) / float(np.sqrt(ddim.alphas[i]))
+        model_output = model_out_fn(x, t, step)
+        e_t, pred_x0 = _eps_x0(ddim, i, schedule, step, x, model_output, opt)
         x = _ddim_update(ddim, i, x, pred_x0, e_t, opt, draws)
     return x
 

@@ -238,7 +238,7 @@ def test_cami2v_fused_guided_step_matches_jax():
         tm.apply_model = lambda x_, t_, c_, fs_: calls.append(x_.shape[0]) or real(x_, t_, c_, fs_)
         try:
             fn = tm.build_guided_fn(cond, dict(cond, c_crossattn=torch.from_numpy(uctx)), tm.get_fs(tb), **kw)
-            got = fn(torch.from_numpy(x), torch.from_numpy(t))
+            got = fn(torch.from_numpy(x), torch.from_numpy(t), 999)
         finally:
             del tm.apply_model
     assert calls == [4]  # one batch-2B call

@@ -412,7 +412,7 @@ def test_step_noise_must_cover_every_step():
     ddim = DDIMSchedule.create(DiffusionSchedule.create(), 3, "uniform_trailing", 1.0)
     x = torch.zeros(1, 4, 4, 4, 4)
     with pytest.raises(ValueError, match="step_noise"):
-        ddim_sample(ddim, x, lambda x_, t_: x_, step_noise=[x] * 2)
+        ddim_sample(ddim, x, lambda x_, t_, step: x_, step_noise=[x] * 2)
 
 
 @pytest.mark.parametrize("spacing,eta", [("uniform_trailing", 1.0), ("uniform", 0.0), ("quad", 0.5)])

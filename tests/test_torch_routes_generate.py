@@ -121,9 +121,9 @@ def test_fused_cfg_equals_unfused(camcontext, monkeypatch):
         fs = tm.get_fs(tb)
         monkeypatch.delenv("CAMC2V_FUSED_CFG", raising=False)
         calls = _count_unet_calls(monkeypatch, tm)
-        unfused = tm.build_guided_fn(dict(cond), dict(uc), fs, guidance_scale=7.5)(x, t)
+        unfused = tm.build_guided_fn(dict(cond), dict(uc), fs, guidance_scale=7.5)(x, t, 500)
         monkeypatch.setenv("CAMC2V_FUSED_CFG", "1")
-        fused = tm.build_guided_fn(dict(cond), dict(uc), fs, guidance_scale=7.5)(x, t)
+        fused = tm.build_guided_fn(dict(cond), dict(uc), fs, guidance_scale=7.5)(x, t, 500)
     assert [n for n, _ in calls] == [1, 1, 2]
     assert float(unfused.abs().max()) > 0.1
     np.testing.assert_allclose(fused.numpy(), unfused.numpy(), rtol=0, atol=3e-5 * float(unfused.abs().max()))
@@ -150,7 +150,7 @@ def test_fused_cfg_keeps_batch_shared_penalties(camcontext, monkeypatch):
         return torch.zeros_like(x[..., :4])
 
     monkeypatch.setattr(tm, "apply_model", record)
-    tm.build_guided_fn(cond, uc, None, guidance_scale=7.5)(torch.zeros(1, 4, 4, 4, 4), torch.zeros(1))
+    tm.build_guided_fn(cond, uc, None, guidance_scale=7.5)(torch.zeros(1, 4, 4, 4, 4), torch.zeros(1), 0)
     stacked = seen["cond"]
     prep = stacked["camera"]["epi_prep"][8]
     assert prep["penalties"] is pen  # shared, not duplicated

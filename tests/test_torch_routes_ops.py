@@ -357,7 +357,7 @@ def test_dpmpp_2m_sample_matches_jax():
         np.testing.assert_array_equal(np.asarray(jd.timesteps), td.timesteps)
         ref = np.asarray(jdpm(jax.random.key(0), jd, jnp.asarray(x_t),
                               lambda x, t: jnp.tanh(x @ w) * (t[:, None, None, None, None] / 1000.0)))
-        got = dpmpp_2m_sample(td, T_(x_t), lambda x, t: torch.tanh(x @ T_(w)) * (t[:, None, None, None, None] / 1000.0))
+        got = dpmpp_2m_sample(td, T_(x_t), lambda x, t, step: torch.tanh(x @ T_(w)) * (t[:, None, None, None, None] / 1000.0))
         assert_close(got.numpy(), ref)
 
 

@@ -61,7 +61,7 @@ def jax_out(x, t):
         :, None, None, None, None]
 
 
-def torch_out(x, t):
+def torch_out(x, t, step):
     return 0.1 * x + 0.05 * x.mean(dim=1, keepdim=True) + torch.sin(t.float() / 1000.0)[:, None, None, None, None]
 
 
@@ -268,8 +268,8 @@ def test_guided_evaluation_matches_jax(camcontext, monkeypatch, case):
     3-step `sample` below and the camera files): the CFG and camera-CFG
     combination, the scheduler, the interval's branch, and under
     CAMC2V_FUSED_CFG the padded batch-2B call with the camera-free pass on
-    the padded cond. The port's closure is called with the step on the host
-    (as the samplers call it) and without (its device path)."""
+    the padded cond. The port's closure is called with the step on the host,
+    as the samplers call it."""
     jm, _, tm = camcontext
     sched, interval, fused = GUIDED[case]
     monkeypatch.setenv("CAMC2V_FUSED_CFG", fused)
@@ -290,12 +290,10 @@ def test_guided_evaluation_matches_jax(camcontext, monkeypatch, case):
     ref = np.asarray(jit_o0(jax_fn)(*(jnp.asarray(a) for a in (x, t, c_concat, ctx, uctx, F, fs)), *bounds))
     cond = {"c_concat": T_(c_concat), "c_crossattn": T_(ctx), "camera": {"F": T_(F)}}
     fn = tm.build_guided_fn(cond, dict(cond, c_crossattn=T_(uctx)), T_(fs), cfg_interval=interval, **kw)
-    assert fn.host_step
-    for got in (fn(T_(x), T_(t), step=600), fn(T_(x), T_(t))):
-        assert_rel(got.numpy(), ref, 1e-5)
+    got = fn(T_(x), T_(t), 600)
+    assert_rel(got.numpy(), ref, 1e-5)
     if interval is not None and not interval[0] <= 600 <= interval[1]:  # outside: the conditional call alone
-        np.testing.assert_array_equal(fn(T_(x), T_(t), step=600).numpy(), tm.apply_model(T_(x), T_(t), cond,
-                                                                                           T_(fs)).numpy())
+        np.testing.assert_array_equal(got.numpy(), tm.apply_model(T_(x), T_(t), cond, T_(fs)).numpy())
 
 
 @pytest.fixture(scope="module")

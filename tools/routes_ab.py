@@ -245,7 +245,7 @@ def fused_call(model):
     x = torch.randn(z.shape, generator=torch.Generator(device=DEV).manual_seed(52), device=DEV)
     model.apply_model = lambda *a, **k: calls.append(a) or real(*a, **k)
     try:
-        fn(x, torch.full((1,), 999, device=DEV))
+        fn(x, torch.full((1,), 999, device=DEV), 999)
     finally:
         del model.apply_model
     return calls[0]
