@@ -182,15 +182,19 @@ def _value(text: str) -> Any:
 def _strip_comment(line: str) -> str:
     """The line without its comment (a '#' at the start or after a space,
     outside quotes) and trailing spaces."""
-    quote = None
-    for j, ch in enumerate(line):
+    quote, j = None, 0
+    while j < len(line):
+        ch = line[j]
         if quote:
-            if ch == quote:
+            if (quote == "'" and line[j:j + 2] == "''") or (quote == '"' and ch == "\\"):
+                j += 1  # an escaped quote or character stays inside the scalar
+            elif ch == quote:
                 quote = None
         elif ch in "'\"" and (j == 0 or line[j - 1] in " [{,:"):
             quote = ch
         elif ch == "#" and (j == 0 or line[j - 1] in " \t"):
             return line[:j].rstrip()
+        j += 1
     return line.rstrip()
 
 
@@ -267,6 +271,31 @@ def parse_yaml(text: str) -> Any:
 def load_yaml(path: str) -> dict:
     with open(path) as f:
         return parse_yaml(f.read())
+
+
+def _single_quoted(text: str) -> str:
+    if not isinstance(text, str) or "\n" in text or "\r" in text:
+        raise ValueError(f"dump_yaml: one-line strings only, got {text!r}")
+    return "'" + text.replace("'", "''") + "'"
+
+
+def dump_yaml(mapping: dict) -> str:
+    """Block yaml of a nested mapping of one-line strings (the experiment
+    registry `.exp_meta.yaml`): keys sorted as `yaml.safe_dump` sorts them,
+    every key and value single-quoted, so `parse_yaml` and `yaml.safe_load`
+    read back the same strings."""
+    def emit(node: dict, indent: int) -> list[str]:
+        lines = []
+        for key in sorted(node):
+            value, pad = node[key], " " * indent
+            if isinstance(value, dict):
+                lines.append(f"{pad}{_single_quoted(key)}:" + ("" if value else " {}"))
+                lines += emit(value, indent + 2)
+            else:
+                lines.append(f"{pad}{_single_quoted(key)}: {_single_quoted(value)}")
+        return lines
+
+    return "\n".join(emit(mapping, 0)) + "\n" if mapping else "{}\n"
 
 
 def apply_dotlist(cfg: dict, overrides: list[str]) -> dict:

@@ -1,5 +1,6 @@
-"""The fit loop of one device (`camc2v_tpu/main/harness.py::Trainer`) and the
-helpers of a training run: workspace, logger, batch transfer, sample logging.
+"""The fit loop of one device (`camc2v_tpu/main/harness.py::Trainer`), the
+helpers of a training run (workspace, logger, batch transfer, sample
+logging) and the generation pass over a data set (`generate_videos`).
 
 `Trainer.fit` runs the train step over the data loader's batches until
 `max_steps` micro-steps, with the JAX harness's behaviour:
@@ -258,28 +259,13 @@ class Trainer:
         return mean
 
 
-def save_video_grid(path_stem: str, videos: np.ndarray, fps: float = 8.0) -> str:
-    """(B, T, H, W, 3) [-1, 1] videos side by side -> `<stem>.mp4` with
-    OpenCV, else `<stem>.npz` (frames uint8, fps); returns the path."""
-    from camc2v_tpu_torch.data.video_io import write_video
-
-    frames = ((np.clip(videos, -1.0, 1.0) + 1.0) * 127.5).round().astype(np.uint8)
-    grid = np.concatenate(list(frames), axis=2)  # (T, H, B*W, 3)
-    try:
-        import cv2  # noqa: F401
-
-        path = path_stem + ".mp4"
-    except ImportError:
-        path = path_stem + ".npz"
-    write_video(path, grid, fps)
-    return path
-
-
 def make_sample_logger(model, dataloader, out_dir: str, *, tokenizer=None, sample_kwargs: Optional[dict] = None,
                        num_batches: int = 1, sinks=None):
     """The ImageLogger's `sample_fn`: `model.sample` on the loader's first
     `num_batches` batches (taken once, so every log shows the same
-    examples), written by `save_video_grid` and sent to the sinks."""
+    examples), written by `utils.save_video.save_grid` and sent to the sinks."""
+    from camc2v_tpu_torch.utils.save_video import save_grid
+
     sample_kwargs = dict(sample_kwargs or {})
     os.makedirs(out_dir, exist_ok=True)
     fixed: list = []
@@ -297,9 +283,61 @@ def make_sample_logger(model, dataloader, out_dir: str, *, tokenizer=None, sampl
             batch = batch_to_device(batch, device, tokenizer)
             generator = torch.Generator(device=device).manual_seed(step + i)
             videos = model.sample(batch, generator=generator, **sample_kwargs).float().cpu().numpy()
-            path = save_video_grid(os.path.join(out_dir, f"step{step:07d}_b{i}"), videos)
+            path = save_grid(os.path.join(out_dir, f"step{step:07d}_b{i}"), videos)
             for sink in sinks or ():
                 sink.log_video(step, f"samples/batch{i}", videos[0])
             logger.info(f"[media] samples at step {step}: {path}")
 
     return sample_fn
+
+
+def generate_videos(model, dataloader, out_dir: str, *, tokenizer=None, sample_kwargs: Optional[dict] = None,
+                    max_batches: Optional[int] = None, skip_existing: bool = True, seed: int = 0,
+                    mesh=None) -> list[str]:
+    """The generation ("test") pass: one evaluation directory per video
+    (`utils/save_video.py::log_evaluation`), as `camc2v_tpu/main/harness.py::
+    generate_videos` writes it. Videos are named by their `video_path`, else
+    `sample_{i:05d}_{j}`; `skip_existing` skips a batch whose videos all
+    exist (the reference's `--continue`); batch i samples from a generator
+    seeded `seed + i`. Each generated batch logs its host seconds of
+    loading, `sample` (ended by the copy to the host) and writing, also as
+    the record's `timing` attribute (a dict). The sharded sampler over a
+    mesh is not ported: `mesh=` raises."""
+    if mesh is not None:
+        raise NotImplementedError("generate_videos: sharded generation over a mesh is not ported "
+                                  "(ROADMAP queue 1, item 6)")
+    from camc2v_tpu_torch.utils.save_video import generated_exists, log_evaluation
+
+    sample_kwargs = dict(sample_kwargs or {})
+    device = next(model.parameters()).device
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    t0 = time.perf_counter()
+    for i, batch in enumerate(dataloader):
+        if max_batches is not None and i >= max_batches:
+            break
+        names = [os.path.splitext(os.path.basename(p))[0] for p in batch.get("video_path", [])]
+        if not names:
+            names = [f"sample_{i:05d}_{j}" for j in range(len(batch["video"]))]
+        if skip_existing and all(generated_exists(os.path.join(out_dir, n)) for n in names):
+            t0 = time.perf_counter()
+            continue
+        device_batch = batch_to_device(batch, device, tokenizer)
+        t1 = time.perf_counter()
+        generator = torch.Generator(device=device).manual_seed(seed + i)
+        videos = model.sample(device_batch, generator=generator, **sample_kwargs).float().cpu().numpy()
+        t2 = time.perf_counter()
+        ctx = batch.get("cond_frames")
+        for j, name in enumerate(names):
+            written.append(log_evaluation(
+                out_dir, name, videos[j], ground_truth=np.asarray(batch["video"][j]),
+                camera_data=np.asarray(batch["camera_data"][j]) if "camera_data" in batch else None,
+                caption=batch["caption"][j] if "caption" in batch else None,
+                context_frames=np.asarray(ctx[j]) if ctx is not None else None,
+                fps=float(np.asarray(batch["fps"][j])) if "fps" in batch else 8.0))
+            logger.info(f"[generate] wrote {written[-1]}")
+        rec = dict(batch=i, videos=len(names), load_s=t1 - t0, sample_s=t2 - t1, write_s=time.perf_counter() - t2)
+        logger.info(f"[generate] batch {i}: {len(names)} videos; load {rec['load_s']:.3f} s, sample "
+                    f"{rec['sample_s']:.3f} s, write {rec['write_s']:.3f} s", extra={"timing": rec})
+        t0 = time.perf_counter()
+    return written

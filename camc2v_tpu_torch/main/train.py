@@ -14,7 +14,9 @@ the callbacks from `lightning`, and runs `main.harness.Trainer.fit`;
 (or `--pretrained`) that exists is the reference's `.pt`: it is imported into
 the seeded model (`utils/torch_import.py::load_reference_checkpoint`, keys
 that match loaded, the rest reported in the log); one that does not exist
-leaves the seeded weights.
+leaves the seeded weights. The checkpoint directory records that base
+(`base.json`: seed, imported `.pt`, digest); `--continue` raises if the
+weights made now differ from it.
 
 The `lightning` keys read here: `trainer.{max_steps, accumulate_grad_batches,
 gradient_clip_val, precision, val_check_interval, limit_val_batches,
@@ -70,6 +72,7 @@ def main(argv: Optional[list] = None, callbacks: Optional[list] = None):
     from camc2v_tpu_torch.main.harness import Trainer, init_workspace, make_sample_logger, setup_logger
     from camc2v_tpu_torch.main.loggers import build_sinks
     from camc2v_tpu_torch.parallel import trainer as TR
+    from camc2v_tpu_torch.utils import checkpoint as CK
 
     cfg = apply_dotlist(load_yaml(args.config), args.overrides)
     name = args.name or os.path.splitext(os.path.basename(args.config))[0]
@@ -90,6 +93,14 @@ def main(argv: Optional[list] = None, callbacks: Optional[list] = None):
                  f"{len(report['shape_mismatch'])} shape mismatches)")
     elif ckpt_path:
         log.info(f"pretrained checkpoint {ckpt_path} not found: seeded weights (seed {args.seed})")
+        ckpt_path = None
+    # what the checkpoints' masters are laid over again (utils/checkpoint.py)
+    base = dict(seed=args.seed, pretrained=os.path.abspath(ckpt_path) if ckpt_path else None,
+                digest=CK.base_digest(model))
+    if args.resume and os.path.exists(os.path.join(dirs["ckptdir"], CK.BASE_FILE)):
+        CK.check_base(dirs["ckptdir"], base)
+    else:
+        CK.write_base(dirs["ckptdir"], base)
 
     tokenizer = default_tokenizer(args.bpe_path, model.config.clip_text.context_length)
     data_cfg = cfg.get("data", {}).get("params", {})

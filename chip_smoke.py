@@ -186,6 +186,49 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               `p_sample_loop` through the guided closure over the last 25
               DDPM steps; (e) img2img: `ddim_stochastic_encode` to DDIM step
               12 of 25, then `ddim_decode`; (d) and (e) timed and finite.
+ 11. entry-points the port's user entry points, called in this process,
+              first with OpenCV hidden (the videos are then lossless `.npz`,
+              as on a machine without OpenCV, and the resize takes its
+              PyTorch path; the phase prints which of cv2, PIL, yaml and
+              gradio the machine has), every `sample` call
+              recorded (its batch's video, its output, its generator's
+              seed, its seconds between two synchronisations): (a) `camc2v_tpu_torch.main.generate.
+              main` (the 02 CLI) on configs/models/camcontexti2v_256.yaml as
+              it is, dotlist overrides only for the validation split's data
+              paths (the yaml has no test split) and `num_workers`: a
+              synthetic tree of 4 clips (phase 9's writer) under
+              smoke_out/entry_points, the CLI's defaults (CFG 7.5, camera CFG
+              1.0, 25 DDIM steps, uniform_trailing, eta 1, rescale 0.7, the
+              yaml's batch 2, seeded weights) and `--num-videos 2` (2
+              batches, 4 videos). Fails unless 4 directories hold the
+              contract's files, each generated video is the clipped output
+              `sample` returned (so every frame written is in [-1, 1]; the
+              output is finite), and K1-K4 and K6 launch; prints s/video by
+              batch, each batch's loading / `sample` / writing seconds, the
+              model's build and the peak memory. Then the same argv with
+              `--continue` must write nothing, call `sample` never and launch
+              no kernel. (b) `main.visualize.main` (the 04 demo) headless on
+              configs/demo/models.json's first entry (CamContextI2V-256,
+              seeded weights), a 256x256 PNG written by `data/image_io.py`,
+              `--trajectory-name "zoom in"`, `--chunks 2`: a 31-frame video
+              equal to the chunks' clipped outputs, chunk 2's conditioning
+              frames bit-equal to chunk 1's last frame, K1-K4 and K6
+              launched; s per chunk and peak memory. (c) `main.initialize.
+              main` into smoke_out/entry_points, its `.exp_meta.yaml` read
+              back by the port's yaml reader. (d) where OpenCV is installed,
+              the CLI's default path there: (a)'s argv for one batch into
+              another directory with OpenCV visible (the loader's resize
+              through OpenCV, `.mp4` videos): each `generated.mp4` and
+              `ground_truth.mp4` must decode to 16 frames within a mean of
+              MP4_LEVELS (1) 8-bit level of OpenCV's own mp4v round trip of
+              `sample`'s clipped output (of the batch's video), and nearer
+              their own video than the batch's other one; the lossy error
+              against the clipped output (mean |diff|, PSNR) and the batch's
+              loading / `sample` / writing seconds are printed; K1-K4 and K6
+              launched; `--continue` over the `.mp4` files writes nothing
+              and launches no kernel. The `kernels` line carries each
+              kernel's launches in (a) and (b) (`launches_cli_02`,
+              `launches_demo_04`).
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2411,6 +2454,336 @@ def generation_02_phase(dev, device_line: str) -> dict:
     return out
 
 
+ENTRY_DIR = os.path.join(OUT_DIR, "entry_points")
+FLAGSHIP_YAML = "configs/models/camcontexti2v_256.yaml"
+CONTRACT = ("generated", "ground_truth", "camera_data.npy", "captions.txt", "context_0.png")
+
+
+@contextlib.contextmanager
+def _recorded_samples():
+    """Every `DynamiCrafter.sample` call of the block, recorded: the batch's
+    video, the output (both kept on the card), the generator's seed, the
+    call's seconds (synchronised on both sides), its peak memory and the
+    peak before it (the allocator's peak is reset at the call); the call
+    goes through."""
+    from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
+
+    calls, real = [], DynamiCrafter.sample
+
+    def record(self, batch, *, generator=None, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(self, batch, generator=generator, **kw)
+        torch.cuda.synchronize()
+        calls.append(dict(video=batch["video"].clone(), out=out.clone(), seed=generator.initial_seed(),
+                          seconds=time.perf_counter() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          peak_before_gib=before))
+        return out
+
+    DynamiCrafter.sample = record
+    try:
+        yield calls
+    finally:
+        DynamiCrafter.sample = real
+
+
+@contextlib.contextmanager
+def _without_opencv():
+    """`import cv2` raises inside the block (the entry points then write
+    lossless `.npz` videos, as on a machine without OpenCV)."""
+    missing = object()
+    saved = sys.modules.get("cv2", missing)
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is missing:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def _peaks(calls) -> tuple[float, float]:
+    """(GiB) the peak since the last reset, and the sample calls' own, from
+    `_recorded_samples`' records."""
+    sample_peak = max((c["peak_gib"] for c in calls), default=0.0)
+    return max([torch.cuda.max_memory_allocated() / 2 ** 30, sample_peak] + [c["peak_before_gib"] for c in calls]), \
+        sample_peak
+
+
+def _npz_frames(path: str) -> np.ndarray:
+    if not os.path.exists(path):
+        _fail(f"entry points: no video {path}")
+    return np.load(path)["frames"]
+
+
+def _tree_state(root: str) -> dict:
+    return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+            for d, _, files in os.walk(root) for f in files}
+
+
+def entry_points_phase(dev, device_line: str) -> dict:
+    """Phase 11: the port's 02, 04 and 00 entry points, called in this
+    process (see the module docstring)."""
+    import importlib.util
+
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    out = {"host_packages": {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL", "yaml", "gradio")}}
+    print(f"  installed here: {out['host_packages']}; OpenCV hidden for (a)-(c), so the videos are .npz, "
+          "compared bit for bit (and the resize takes its PyTorch path)", flush=True)
+    # (a) the 02 CLI on the flagship yaml: its validation split (the yaml has no test split) over 4 clips
+    tree = write_re10k_tree(os.path.join(ENTRY_DIR, "re10k"), [f"clip{i}" for i in range(4)], 3)
+    argv = ["--config", FLAGSHIP_YAML, "data.params.num_workers=2"]
+    argv += [f"data.params.validation.params.{k}={v}" for k, v in tree.items()]
+    with _without_opencv():
+        out.update(_entry_points(dev, device_line, argv))
+    if out["host_packages"]["cv2"]:
+        out["cli_02_mp4"] = _cli_02_mp4(argv, device_line)
+    else:
+        print("  (d) no OpenCV here: the .npz run of (a) is the CLI's default path", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _batch_timings():
+    """The loading / `sample` / writing seconds that `generate_videos` logs
+    for each batch (the log records' `timing`), collected at the root
+    logger (`setup_logger` replaces the port logger's own handlers)."""
+    import logging
+
+    timings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: timings.append(record.timing) if hasattr(record, "timing") else None
+    logging.getLogger().addHandler(handler)
+    try:
+        yield timings
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def _decode_mp4(path: str) -> tuple[np.ndarray, float]:
+    """(every frame, RGB uint8 (T, H, W, 3); fps) of a video, by OpenCV."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        _fail(f"entry points: cannot open {path}")
+    fps, frames = cap.get(cv2.CAP_PROP_FPS), []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    return (np.stack(frames) if frames else np.zeros((0, 0, 0, 3), np.uint8)), fps
+
+
+def _mp4v_round_trip(frames: np.ndarray, fps: float, path: str) -> np.ndarray:
+    """`frames` through OpenCV's mp4v encoder and decoder, written here and
+    not by the port: the codec's own image of them."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    vw.release()
+    return _decode_mp4(path)[0]
+
+
+# (d)'s tolerance, in 8-bit levels: the mean |difference| between the CLI's
+# decoded .mp4 and OpenCV's own mp4v round trip of the clipped output
+MP4_LEVELS = 1.0
+
+
+def _cli_02_mp4(argv: list, device_line: str) -> dict:
+    """(d) the 02 CLI as it runs by default where OpenCV is installed: one
+    batch of (a)'s argv into another directory, `.mp4` videos, the loader's
+    resize through OpenCV, then `--continue` over the `.mp4` files."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.main import generate
+    from camc2v_tpu_torch.utils.save_video import to_uint8
+
+    mp4_dir = os.path.join(ENTRY_DIR, "generation_mp4")
+    argv = argv + ["--out", mp4_dir, "--num-videos", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with _recorded_samples() as calls, _batch_timings() as timings:
+        t0 = time.perf_counter()
+        written = generate.main(argv)
+        total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if len(written) != 2 or len(calls) != 1 or len(timings) != 1:
+        _fail(f"02 CLI .mp4: {len(written)} directories from {len(calls)} sample calls: {written}")
+    if not all(launches[n] > 0 for n in GEN02_PATH):
+        _fail(f"02 CLI .mp4: a kernel of the path never launched: {launches}")
+    wants = {"generated": [to_uint8(v) for v in calls[0]["out"].float().cpu().numpy()],
+             "ground_truth": [to_uint8(v) for v in calls[0]["video"].float().cpu().numpy()]}
+    errors = {}
+    for j, vdir in enumerate(written):
+        for stem, want in wants.items():
+            got, fps = _decode_mp4(os.path.join(vdir, stem + ".mp4"))
+            if got.shape != want[j].shape or got.shape[0] != 16:
+                _fail(f"02 CLI .mp4: {vdir}/{stem}.mp4 decodes to {got.shape}, not {want[j].shape}")
+            codec = _mp4v_round_trip(want[j], fps, os.path.join(ENTRY_DIR, f"codec_{j}_{stem}.mp4"))
+            diff = np.abs(got.astype(np.int16) - want[j]).astype(np.float64)
+            e = dict(levels_from_codec=float(np.abs(got.astype(np.int16) - codec).mean()),
+                     mae=float(diff.mean()), psnr_db=float(10 * np.log10(255 ** 2 / max((diff ** 2).mean(), 1e-12))),
+                     mae_other=float(np.abs(got.astype(np.int16) - want[1 - j]).mean()))
+            errors[f"{os.path.basename(vdir)}/{stem}"] = e
+            if not (e["levels_from_codec"] <= MP4_LEVELS and e["mae"] < e["mae_other"]):
+                _fail(f"02 CLI .mp4: {vdir}/{stem}.mp4 is not the codec's image of its clipped frames: {e}")
+    t = timings[0]
+    print(f"  (d) 02 CLI with OpenCV (.mp4): {len(written)} directories in 1 batch of 2; main() {total!r} s; "
+          f"s/video {(t['load_s'] + t['sample_s'] + t['write_s']) / 2!r}; split load {t['load_s']!r} s, sample "
+          f"{t['sample_s']!r} s, write {t['write_s']!r} s (the .mp4 encodes and PNGs); decoded 16 frames each, "
+          f"mean |diff| from OpenCV's own round trip of the clipped output <= {MP4_LEVELS} level: {errors} "
+          f"[{device_line}]", flush=True)
+    print(f"  (d) launches {launches}", flush=True)
+    before = _tree_state(mp4_dir)
+    ops.reset_launch_counts()
+    with _recorded_samples() as again_calls:
+        t0 = time.perf_counter()
+        again = generate.main(argv + ["--continue"])
+        resumed_s = time.perf_counter() - t0
+    if again or again_calls or any(ops.LAUNCHES.values()) or _tree_state(mp4_dir) != before:
+        _fail(f"02 CLI .mp4 --continue: wrote {again}, {len(again_calls)} sample calls, launches "
+              f"{dict(ops.LAUNCHES)}")
+    print(f"  (d) --continue over the .mp4 videos: nothing written, no sample call, no launch ({resumed_s!r} s)",
+          flush=True)
+    return dict(dirs=[os.path.basename(d) for d in written], main_s=total, timings=timings, launches=launches,
+                errors=errors, continue_s=resumed_s)
+
+
+def _entry_points(dev, device_line: str, argv: list) -> dict:
+    import socket
+
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.config_yaml import load_yaml
+    from camc2v_tpu_torch.data.image_io import read_image, write_png
+    from camc2v_tpu_torch.main import generate, initialize, visualize
+    from camc2v_tpu_torch.utils.save_video import to_uint8
+
+    out = {}
+    gen_dir = os.path.join(ENTRY_DIR, "generation")
+    argv = argv + ["--out", gen_dir, "--num-videos", "2"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _recorded_samples() as calls, _batch_timings() as timings:
+        t0 = time.perf_counter()
+        written = generate.main(argv)
+        total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak, sample_peak = _peaks(calls)
+    if len(written) != 4 or len(set(written)) != 4 or len(calls) != 2 or len(timings) != 2:
+        _fail(f"02 CLI: {len(written)} directories from {len(calls)} sample calls: {written}")
+    outs = torch.cat([c["out"] for c in calls]).float()
+    if not torch.isfinite(outs).all():
+        _fail("02 CLI: a generated value is not finite")
+    for j, vdir in enumerate(written):
+        files = os.listdir(vdir)
+        missing = [f for f in CONTRACT if not any(g == f or g.startswith(f + ".") for g in files)]
+        if missing:
+            _fail(f"02 CLI: {vdir} lacks {missing} (holds {sorted(files)})")
+        frames = _npz_frames(os.path.join(vdir, "generated.npz"))
+        want = to_uint8(outs[j].cpu().numpy())
+        if frames.shape != want.shape or not np.array_equal(frames, want):
+            _fail(f"02 CLI: {vdir}'s generated frames {frames.shape} are not the clipped sample output")
+        ctx = read_image(os.path.join(vdir, "context_0.png"))
+        if ctx.shape != want.shape[1:]:
+            _fail(f"02 CLI: context_0.png of {vdir} is {ctx.shape}")
+    outside = float(((outs < -1) | (outs > 1)).float().mean())
+    batch_s = [t["load_s"] + t["sample_s"] + t["write_s"] for t in timings]
+    print(f"  (a) 02 CLI: {len(written)} directories in {len(timings)} batches of 2 ({sorted(files)}); "
+          f"main() {total:.3f} s, of which the batches {sum(batch_s):.3f} s and building the model and loader "
+          f"{total - sum(batch_s):.3f} s; s/video by batch {[round(s / 2, 3) for s in batch_s]} (batch 0 the "
+          f"first on the built model); split by batch: " + "; ".join(
+              f"load {t['load_s']:.3f} s, sample {t['sample_s']:.3f} s, write {t['write_s']:.3f} s"
+              for t in timings) + f"; peak {peak:.2f} GiB over main() (the model's f32 build included), "
+          f"{sample_peak:.2f} GiB over the sample calls; sample output range [{outs.min().item():.3f}, "
+          f"{outs.max().item():.3f}], {outside:.4f} of the values outside [-1, 1] (clipped when written) "
+          f"[{device_line}]", flush=True)
+    print(f"  (a) launches {launches}", flush=True)
+    if not all(launches[n] > 0 for n in GEN02_PATH):
+        _fail(f"02 CLI: a kernel of the path never launched: {launches}")
+    out["cli_02"] = dict(dirs=[os.path.basename(d) for d in written], main_s=total, timings=timings,
+                         s_per_video=[s / 2 for s in batch_s], peak_gib=peak, sample_peak_gib=sample_peak,
+                         launches=launches,
+                         outside_unit_range=outside)
+    del calls, outs
+    # --continue: every video exists, so nothing is written and no kernel launches
+    before = _tree_state(gen_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with _recorded_samples() as calls:
+        t0 = time.perf_counter()
+        again = generate.main(argv + ["--continue"])
+        resumed_s = time.perf_counter() - t0
+    if again or calls or any(ops.LAUNCHES.values()) or _tree_state(gen_dir) != before:
+        _fail(f"02 CLI --continue: wrote {again}, {len(calls)} sample calls, launches {dict(ops.LAUNCHES)}")
+    print(f"  (a) --continue: nothing written, no sample call, no launch ({resumed_s:.3f} s)", flush=True)
+    out["cli_02"]["continue_s"] = resumed_s
+
+    # (b) the 04 demo, headless: models.json's first entry, a 256 x 256 PNG, 'zoom in', 2 chunks
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+    image = np.stack([127.5 + 120 * np.sin(xx / (17 + 9 * c) + yy / 29 + c) for c in range(3)], -1).astype(np.uint8)
+    img_path = os.path.join(ENTRY_DIR, "input.png")
+    write_png(img_path, image)
+    if not np.array_equal(read_image(img_path), image):
+        _fail("04 demo: the PNG read back differs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _recorded_samples() as calls:
+        t0 = time.perf_counter()
+        path = visualize.main(["--models-json", "configs/demo/models.json", "--image", img_path, "--prompt",
+                               "a room with a window", "--trajectory-name", "zoom in", "--chunks", "2",
+                               "--out", os.path.join(ENTRY_DIR, "demo")])
+        total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak, sample_peak = _peaks(calls)
+    frames = _npz_frames(path)
+    t = calls[0]["video"].shape[1] if calls else 0
+    if len(calls) != 2 or frames.shape[0] != 2 * t - 1:
+        _fail(f"04 demo: {len(calls)} chunks of {t} frames, video {frames.shape}")
+    first, second = calls[0]["out"][0].float(), calls[1]["out"][0].float()
+    cond = calls[1]["video"][0]
+    fed = bool(torch.equal(cond, first[-1].expand_as(cond)))
+    want = to_uint8(torch.cat([first, second[1:]]).cpu().numpy())
+    finite = bool(torch.isfinite(first).all() and torch.isfinite(second).all())
+    print(f"  (b) 04 demo: {path}, {frames.shape[0]} frames; s per chunk {[round(c['seconds'], 3) for c in calls]} "
+          f"(seeds {[c['seed'] for c in calls]}); main() {total:.3f} s; chunk 2 conditioned on chunk 1's last "
+          f"frame bit for bit: {fed}; finite: {finite}; peak {peak:.2f} GiB over main() (the model's f32 build "
+          f"included), {sample_peak:.2f} GiB over the chunks' sample calls [{device_line}]", flush=True)
+    print(f"  (b) launches {launches}", flush=True)
+    if not (fed and finite and np.array_equal(frames, want)):
+        _fail("04 demo: chunk 2 is not conditioned on chunk 1's last frame, or the video is not the chunks' output")
+    if not all(launches[n] > 0 for n in GEN02_PATH):
+        _fail(f"04 demo: a kernel of the path never launched: {launches}")
+    out["demo_04"] = dict(frames=int(frames.shape[0]), s_per_chunk=[c["seconds"] for c in calls], main_s=total,
+                          peak_gib=peak, sample_peak_gib=sample_peak, launches=launches)
+    del calls, first, second, cond
+
+    # (c) the 00 initialisation, its registry read back by the port's reader
+    workdir = initialize.main(["--config", FLAGSHIP_YAML, "--name", "smoke", "--logdir", ENTRY_DIR])
+    entry = load_yaml(os.path.join(ENTRY_DIR, ".exp_meta.yaml"))[socket.gethostname()]["smoke"]
+    if entry["workdir"] != os.path.abspath(workdir) or not os.path.exists(
+            os.path.join(workdir, "configs", os.path.basename(FLAGSHIP_YAML))):
+        _fail(f"00 initialize: registry entry {entry} for {workdir}")
+    print(f"  (c) 00 initialize: {workdir}, registry entry {entry}", flush=True)
+    out["initialize_00"] = entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
 # kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
 # and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
@@ -2559,6 +2932,11 @@ def main() -> None:
     with _switches("0"):
         gen02 = generation_02_phase(dev, device_line)
 
+    print("[11 entry-points] the port's 02 CLI on the flagship yaml (2 batches, then --continue), the 04 demo "
+          "headless (2 chunks), 00 initialize", flush=True)
+    with _switches("0"):
+        entry = entry_points_phase(dev, device_line)
+
     first = train_run["vae_batch_layers"]["first_differing"]
     if first is not None and first["kind"].startswith("GroupNorm"):
         _fail(f"the VAE's batch dependence starts at a GroupNorm ({first})")
@@ -2566,7 +2944,7 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
                        launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
-                       generation_02=gen02, kernels=checks), f, indent=1, default=str)
+                       generation_02=gen02, entry_points=entry, kernels=checks), f, indent=1, default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -2594,6 +2972,7 @@ def main() -> None:
              launches=routes["launches"][name] if name in new else launches[name],
              launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
              launches_train_run=train_run["launches"][name], launches_generation_02=gen02["launches"][name],
+             launches_cli_02=entry["cli_02"]["launches"][name], launches_demo_04=entry["demo_04"]["launches"][name],
              **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
