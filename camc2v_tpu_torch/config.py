@@ -70,7 +70,8 @@ class UNetConfig:
     fs_condition: bool = True
     text_context_len: int = 77
     img_tokens_per_frame: int = 16
-    # camera branch of the temporal blocks (CamI2V / CamContextI2V)
+    # camera branch of the temporal blocks: CamI2V / CamContextI2V
+    # (use_camera, epipolar, add_type) or the baselines' camera_mode
     use_camera: bool = False
     epipolar: Optional[EpipolarConfig] = None
     add_type: str = "add_to_main_branch"
@@ -196,8 +197,7 @@ class CameraControlConfig(DynamiCrafterConfig):
 
 @dataclasses.dataclass(frozen=True)
 class MotionCtrlConfig(CameraControlConfig):
-    """MotionCtrl's configuration (the yaml reader builds it; the model's
-    `camera_mode='motionctrl'` UNet raises at construction)."""
+    """MotionCtrl's configuration (its UNet has `camera_mode='motionctrl'`)."""
 
     pose_dim: int = 12
 

@@ -14,10 +14,10 @@ raises on anything else (block lists, aliases, merge keys, tags, block
 scalars), so a file it reads gives what `safe_load` gives. The port has its own reader
 because the machines with the card need not have PyYAML.
 
-The `target:` dotted paths and `params:` keys are the JAX bridge's;
-MotionCtrl and CameraCtrl get their configurations, and their models raise
-at construction (the UNet's `camera_mode` is not ported). CLI dotlist
-overrides merge last, values read by the same scalar rules.
+The `target:` dotted paths and `params:` keys are the JAX bridge's, the
+five model families included (MotionCtrl and CameraCtrl through their
+UNet's `camera_mode`). CLI dotlist overrides merge last, values read by the
+same scalar rules.
 """
 
 from __future__ import annotations
@@ -508,15 +508,13 @@ def model_config_from_yaml(cfg: dict) -> tuple[str, DynamiCrafterConfig]:
 
 
 def model_class(cls_name: str):
-    """The port's model class for a class name of MODEL_CLASSES. MotionCtrl
-    and CameraCtrl get the camera base, whose UNet raises on their
-    `camera_mode`."""
+    """The port's model class for a class name of MODEL_CLASSES."""
     from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V
-    from camc2v_tpu_torch.models.camera_base import CameraControlLVDM, CamI2V
+    from camc2v_tpu_torch.models.camera_base import CameraCtrl, CamI2V, MotionCtrl
     from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
 
     return {"CamContextI2V": CamContextI2V, "CamI2V": CamI2V, "DynamiCrafter": DynamiCrafter,
-            "MotionCtrl": CameraControlLVDM, "CameraCtrl": CameraControlLVDM}[cls_name]
+            "MotionCtrl": MotionCtrl, "CameraCtrl": CameraCtrl}[cls_name]
 
 
 def build_model_from_config(cfg: dict, *, device="cuda", seed: int = 0, dtype=torch.bfloat16):

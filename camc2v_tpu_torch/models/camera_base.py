@@ -1,14 +1,20 @@
-"""Camera-controlled LVDM base and CamI2V (`camc2v_tpu/models/camera_base.py`;
-reference model/base.py:20-482 and baseline/cami2v/cami2v.py:21-241).
+"""Camera-controlled LVDM base, the MotionCtrl and CameraCtrl baselines and
+CamI2V (`camc2v_tpu/models/camera_base.py`; reference model/base.py:20-482,
+baseline/motionctrl/motionctrl.py, baseline/cameractrl/cameractrl.py and
+baseline/cami2v/cami2v.py:21-241).
 
-CamI2V conditions the UNet's temporal blocks on the camera through the
-Plücker pose encoder's feature pyramid (`pluker_projection`) and epipolar
-attention (`UNetConfig.use_camera`, `UNetConfig.epipolar`).
-`CamI2V.camera_condition` builds the payload once per request: the relative
-poses, the fundamental matrices of every frame pair, the epipolar lines and
-kernel tile maps of every level (`prepare_plain_epipolar`), and the Plücker
-pyramid; it rides cond["camera"] through every denoise step. MotionCtrl and
-CameraCtrl are not ported.
+Each model differs in what its `camera_condition` returns and in the
+injection its UNet's temporal blocks were built with (`nn/attention.py`):
+MotionCtrl the flattened relative w2c 3x4 poses (`RT`, for every temporal
+block's `cc_projection` and init_attn's; `UNetConfig.camera_mode=
+'motionctrl'`); CameraCtrl the Plücker pose encoder's feature pyramid (a
+zero-init `cc_projection` into attn1's input; `camera_mode='cameractrl'`);
+CamI2V the Plücker pyramid (`pluker_projection`) and epipolar attention
+(`UNetConfig.use_camera`, `UNetConfig.epipolar`). `CamI2V.camera_condition`
+builds the payload once per request: the relative poses, the fundamental
+matrices of every frame pair, the epipolar lines and kernel tile maps of
+every level (`prepare_plain_epipolar`), and the Plücker pyramid. Each
+payload rides cond["camera"] through every denoise step.
 
 Batch keys on top of DynamiCrafter's:
   "RT":                (B, T, 4, 4) float w2c poses
@@ -25,6 +31,7 @@ from camc2v_tpu_torch.camera import geometry as G
 from camc2v_tpu_torch.camera.pose_encoder import CameraPoseEncoder
 from camc2v_tpu_torch.config import CameraControlConfig, CamI2VConfig
 from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
+from camc2v_tpu_torch.nn.attention import BasicTransformerBlock
 from camc2v_tpu_torch.nn.epipolar import prepare_plain_epipolar, require_plain
 
 # seed of the zero-translation perturbation draws (the JAX package draws
@@ -57,6 +64,44 @@ class CameraControlLVDM(DynamiCrafter):
             return None
         plucker = G.plucker_embedding(K, rel_c2w, H, W, return_plucker=self.config.camera_embedding == "plucker")
         return self.pose_encoder(plucker)
+
+
+class MotionCtrl(CameraControlLVDM):
+    """RT-matrix conditioning (reference baseline/motionctrl/motionctrl.py:
+    19-71): the payload is the relative w2c 3x4 of every frame, flattened."""
+
+    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *, trace_scale_factor: float = 1.0,
+                         perturb_noise: Optional[torch.Tensor] = None) -> dict:
+        """{"RT": (B, T, 12)}: the inverse of the relative c2w poses, rows
+        0-2 of each, flattened (perturb_noise is unused: no epipolar
+        geometry)."""
+        _, rel_c2w = self.relative_c2w_from_batch(batch, cond_frame_index, trace_scale_factor)
+        rel_w2c = torch.linalg.inv(rel_c2w)
+        b, t = rel_w2c.shape[:2]
+        return {"RT": rel_w2c[:, :, :3, :4].reshape(b, t, 12)}
+
+
+class CameraCtrl(CameraControlLVDM):
+    """Plücker pose-encoder conditioning (reference baseline/cameractrl/
+    cameractrl.py:19-80): the pose encoder's pyramid of the `ray` (or
+    `plucker`) embedding, one level per temporal block's `cc_projection`."""
+
+    def __init__(self, config: CameraControlConfig, dtype=torch.bfloat16):
+        super().__init__(config, dtype=dtype)
+        if self.pose_encoder is None:
+            # no payload ever reaches the UNet, so (as JAX's init) no block has a cc_projection
+            for m in self.unet.modules():
+                if isinstance(m, BasicTransformerBlock):
+                    m.cc_projection = None
+
+    def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *, trace_scale_factor: float = 1.0,
+                         perturb_noise: Optional[torch.Tensor] = None) -> Optional[dict]:
+        """{"plucker": the pose encoder's pyramid}, or None without a pose
+        encoder (perturb_noise is unused)."""
+        H, W = batch["video"].shape[2:4]
+        K, rel_c2w = self.relative_c2w_from_batch(batch, cond_frame_index, trace_scale_factor)
+        plucker = self.plucker_features(K, rel_c2w, H, W)
+        return None if plucker is None else {"plucker": plucker}
 
 
 class CamI2V(CameraControlLVDM):

@@ -1,8 +1,11 @@
 """Transformer blocks of the 3D UNet (`camc2v_tpu/nn/attention.py`), with
-the CamI2V / CamContextI2V camera branch of the temporal blocks (the
-`plucker_epipolar` mode: a `pluker_projection` of the Plücker features plus
-an `Epipolar` attention, added onto the residual stream or into attn1's
-input). The MotionCtrl and CameraCtrl injections are not ported and raise.
+the camera branches of the temporal blocks, one per `camera_mode`:
+`plucker_epipolar` (CamI2V / CamContextI2V: a `pluker_projection` of the
+Plücker features plus an `Epipolar` attention, added onto the residual
+stream or into attn1's input), `motionctrl` (a `cc_projection` of the
+stream and the flattened relative pose after attn1) and `cameractrl` (a
+zero-init `cc_projection` of the normed stream plus the level's Plücker
+features, added into attn1's input).
 
 Token tensors are (N, L, C); SpatialTransformer takes (B*T, H, W, C) maps and
 TemporalTransformer (B, T, H, W, C) videos. One module tree serves both
@@ -139,27 +142,48 @@ class BasicTransformerBlock(nn.Module):
     """attn1 (self) -> attn2 (cross, or self when there is no context) -> FF,
     each pre-LN with a residual.
 
-    A temporal block with `use_camera` and/or `epipolar` given a camera
-    payload runs the camera branch (reference modified_forwards.py:505-536):
-    `normed = norm1(x)`, Plücker tokens `pl` of this level,
-    `z = pluker_projection(normed + pl) + epipolar(normed + pl)`, then
-    `x = z + attn1(normed) + x` (add_type 'add_to_main_branch') or
-    `x = attn1(normed + z) + x` ('add_into_temporal_attn'). attn1 then runs
-    K3 without its LayerNorm, since norm1's output feeds the branch too."""
+    A temporal block given a camera payload runs its camera branch, after
+    `normed = norm1(x)`:
+      * `use_camera` and/or `epipolar` (reference modified_forwards.py:
+        505-536): Plücker tokens `pl` of this level,
+        `z = pluker_projection(normed + pl) + epipolar(normed + pl)`, then
+        `x = z + attn1(normed) + x` (add_type 'add_to_main_branch') or
+        `x = attn1(normed + z) + x` ('add_into_temporal_attn');
+      * camera_mode 'motionctrl' (reference baseline/motionctrl/
+        motionctrl_modified_modules.py:184-198): `x = attn1(normed) + x`,
+        then `x = cc_projection([x | RT])`, the payload's (B, T, pose_dim)
+        relative poses repeated over the block's h*w token rows; a Linear
+        of dim + pose_dim -> dim (initialised in the reference to the
+        identity on x and zero on RT);
+      * camera_mode 'cameractrl' (reference baseline/cameractrl/
+        cameractrl_modified_modules.py:230-244): with the level's Plücker
+        tokens, `x = attn1(normed + cc_projection(normed + pl)) + x`
+        (`cc_projection` zero-initialised in the reference), else
+        `x = attn1(normed) + x`.
+    attn1 then runs K3 without its LayerNorm, since norm1's output feeds the
+    branch too; `cc_projection` is a plain product, as in the JAX package."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, *, context_dim: Optional[int] = None,
                  disable_self_attn: bool = False, image_cross_attention: bool = False,
                  image_cross_attention_scale_learnable: bool = False, text_context_len: int = 77,
                  use_camera: bool = False, epipolar: Optional[EpipolarConfig] = None,
-                 add_type: str = "add_to_main_branch", dtype=torch.float32):
+                 add_type: str = "add_to_main_branch", camera_mode: str = "plucker_epipolar", pose_dim: int = 12,
+                 dtype=torch.float32):
         super().__init__()
         self.dim, self.n_heads, self.d_head, self.dtype = dim, n_heads, d_head, dtype
         self.disable_self_attn = disable_self_attn
         if add_type not in ("add_to_main_branch", "add_into_temporal_attn"):
             raise ValueError(f"unknown add_type '{add_type}'")
-        self.add_type = add_type
+        if camera_mode not in ("plucker_epipolar", "motionctrl", "cameractrl"):
+            raise ValueError(f"unknown camera_mode '{camera_mode}'")
+        if camera_mode != "plucker_epipolar" and (use_camera or epipolar is not None):
+            raise ValueError(f"camera_mode '{camera_mode}' has no pluker_projection or epipolar attention")
+        self.add_type, self.camera_mode = add_type, camera_mode
         self.pluker_projection = Dense(dim, dim, dtype=dtype) if use_camera else None
         self.epipolar = Epipolar(epipolar, dim, n_heads, dtype=dtype) if epipolar is not None else None
+        self.cc_projection = None
+        if camera_mode != "plucker_epipolar":
+            self.cc_projection = Dense(dim + pose_dim if camera_mode == "motionctrl" else dim, dim, dtype=dtype)
         self.norm1 = LayerNormF32(dim)
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None, heads=n_heads,
                                     dim_head=d_head, dtype=dtype)
@@ -193,10 +217,26 @@ class BasicTransformerBlock(nn.Module):
             return zero_init_x + self.attn1(normed) + x
         return self.attn1(normed + zero_init_x) + x
 
+    def _baseline_step(self, x, camera: dict):
+        normed = self.norm1(x)
+        if self.camera_mode == "motionctrl":
+            x = self.attn1(normed) + x
+            rt = camera["RT"]  # (B, T, pose_dim)
+            rt_tok = rt.repeat_interleave(x.shape[0] // rt.shape[0], dim=0).to(x.dtype)  # (B*h*w, T, pose_dim)
+            return self.cc_projection(torch.cat([x, rt_tok], dim=-1))
+        plucker = camera.get("plucker")  # (B, T, h, w, C) of this level, or None
+        if plucker is None:
+            return self.attn1(normed) + x
+        n, t, _ = x.shape
+        pl_tokens = plucker.permute(0, 2, 3, 1, 4).reshape(n, t, -1).to(normed.dtype)
+        return self.attn1(normed + self.cc_projection(normed + pl_tokens)) + x
+
     def forward(self, x, context=None, *, context_mask=None, camera: Optional[dict] = None,
                 spatial_hw: Optional[tuple[int, int]] = None):
         fusable = _fused_mha_ok(x, self.dtype)
-        if camera is not None and (self.pluker_projection is not None or self.epipolar is not None):
+        if camera is not None and self.cc_projection is not None:
+            x = self._baseline_step(x, camera)
+        elif camera is not None and (self.pluker_projection is not None or self.epipolar is not None):
             x = self._camera_step(x, camera, spatial_hw)
         elif not self.disable_self_attn and fusable:
             x = self.attn1.fused_self_attention(x, self.norm1)
@@ -252,22 +292,20 @@ class TemporalTransformer(nn.Module):
                  only_self_att: bool = True, causal_attention: bool = False,
                  relative_position: bool = False, use_camera: bool = False,
                  epipolar: Optional[EpipolarConfig] = None, add_type: str = "add_to_main_branch",
-                 camera_mode: str = "plucker_epipolar", dtype=torch.float32):
+                 camera_mode: str = "plucker_epipolar", pose_dim: int = 12, dtype=torch.float32):
         super().__init__()
         if not only_self_att or causal_attention or relative_position:
             raise NotImplementedError(
                 "TemporalTransformer: temporal cross-attention, causal masks and relative "
                 "positions are not ported (all off in the shipped configs)")
-        if camera_mode != "plucker_epipolar":
-            raise NotImplementedError(f"TemporalTransformer: camera_mode '{camera_mode}' (MotionCtrl, "
-                                      "CameraCtrl) is not ported")
         inner = n_heads * d_head
         self.depth = depth
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = Dense(in_channels, inner, dtype=dtype)
         for i in range(depth):
             setattr(self, f"block_{i}", BasicTransformerBlock(
-                inner, n_heads, d_head, use_camera=use_camera, epipolar=epipolar, add_type=add_type, dtype=dtype))
+                inner, n_heads, d_head, use_camera=use_camera, epipolar=epipolar, add_type=add_type,
+                camera_mode=camera_mode, pose_dim=pose_dim, dtype=dtype))
         self.proj_out = Dense(inner, in_channels, dtype=dtype)
 
     def forward(self, x, camera: Optional[dict] = None):

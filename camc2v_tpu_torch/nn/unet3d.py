@@ -12,6 +12,11 @@ With `use_camera` / `epipolar` every temporal transformer except init_attn
 test) gets the camera branch; `forward(..., camera=...)` routes the
 Plücker feature pyramid by log2 of the block's latent downsample factor, the
 last level to the middle block (reference modified_forwards.py:64-124).
+The baselines' `camera_mode` ('motionctrl', 'cameractrl') gives every
+temporal transformer its `cc_projection` (the identity test clears only
+`use_camera` / `epipolar`, as in JAX), and init_attn too for MotionCtrl,
+whose init_attn gets the whole payload (reference
+motionctrl_modified_modules.py:69).
 
 Training (`deterministic=False`, as in JAX): the ResBlocks drop out
 (`UNetConfig.dropout`, 0.1 in the flagship) and, with `remat`, every
@@ -48,9 +53,6 @@ class UNetModel(nn.Module):
         cfg = self.config = config
         if cfg.resblock_updown:
             raise NotImplementedError("UNetModel: resblock_updown is not ported (off in every shipped config)")
-        if cfg.camera_mode != "plucker_epipolar":
-            raise NotImplementedError(f"UNetModel: camera_mode '{cfg.camera_mode}' (MotionCtrl, CameraCtrl) "
-                                      "is not ported")
         if cfg.remat_policy not in (None, "none"):
             raise NotImplementedError(f"UNetModel: remat_policy '{cfg.remat_policy}' is not ported (only None: "
                                       "save nothing inside a block)")
@@ -70,7 +72,7 @@ class UNetModel(nn.Module):
                 dtype=dtype,
             )
 
-        def temporal(ch_, n_heads=None, d_head=None, with_camera=True):
+        def temporal(ch_, n_heads=None, d_head=None, with_camera=True, camera_mode=cfg.camera_mode):
             if n_heads is None:
                 n_heads, d_head = cfg.heads_for(ch_)
             # the reference's camera patch skips temporal blocks as wide as
@@ -81,7 +83,7 @@ class UNetModel(nn.Module):
                 ch_, n_heads, d_head, depth=cfg.transformer_depth, only_self_att=cfg.temporal_selfatt_only,
                 causal_attention=cfg.use_causal_attention, relative_position=cfg.use_relative_position,
                 use_camera=cfg.use_camera and with_camera, epipolar=cfg.epipolar if with_camera else None,
-                add_type=cfg.add_type, dtype=dtype,
+                add_type=cfg.add_type, camera_mode=camera_mode, pose_dim=cfg.pose_dim, dtype=dtype,
             )
 
         def resblock(in_ch, out_ch):
@@ -91,8 +93,11 @@ class UNetModel(nn.Module):
 
         self.conv_in = Conv(cfg.in_channels, ch, (3, 3), dtype=dtype)
         if cfg.addition_attention:
-            # init_attn: 8 heads x num_head_channels whatever the width
-            self.init_attn = temporal(ch, 8, cfg.num_head_channels, with_camera=False)
+            # init_attn: 8 heads x num_head_channels whatever the width; only
+            # MotionCtrl's sees the camera
+            self.init_attn = temporal(ch, 8, cfg.num_head_channels, with_camera=False,
+                                      camera_mode="motionctrl" if cfg.camera_mode == "motionctrl" else
+                                      "plucker_epipolar")
 
         # (kind, name) per layer of each block; modules registered by name
         self.input_layout: list[list[tuple[str, str]]] = []
@@ -194,7 +199,8 @@ class UNetModel(nn.Module):
     def forward(self, x, timesteps, context, fs=None, camera: Optional[dict] = None, *, context_mask=None,
                 deterministic: bool = True):
         """x (B, T, h, w, C_in); timesteps (B,); context (B, L, D); fs (B,);
-        camera: the camera payload (`plucker` pyramid, `F`, `epi_prep`) or None;
+        camera: the camera payload (`plucker` pyramid, `F`, `epi_prep`; MotionCtrl's
+        `RT`) or None;
         context_mask: optional (B, L) or (B, T, L) bool token validity;
         deterministic=False: training (dropout, block remat)."""
         cfg = self.config
@@ -225,7 +231,8 @@ class UNetModel(nn.Module):
 
         h = self.conv_in(x.reshape(b * t, hh, ww, x.shape[-1]).to(self.dtype))
         if cfg.addition_attention:
-            h = self.init_attn(h.reshape(b, t, *h.shape[1:])).reshape(b * t, *h.shape[1:])
+            init_cam = camera if cfg.camera_mode == "motionctrl" else None
+            h = self.init_attn(h.reshape(b, t, *h.shape[1:]), camera=init_cam).reshape(b * t, *h.shape[1:])
         hs = [h]
         for layers, ds in zip(self.input_layout, self.input_ds):
             h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds),

@@ -3,9 +3,9 @@ the flagship's training recipe, and the entry points that make a model on a
 device: `build` (generation) and `build_for_training`.
 
 reference: configs/models/camcontexti2v_256.yaml and
-configs/baseline/{dynamicrafter,cami2v}_256.yaml. DynamiCrafter-256, CamI2V-256
-and CamContextI2V-256 (the paper's model) are ported; MotionCtrl and
-CameraCtrl are not.
+configs/baseline/{dynamicrafter,motionctrl,cameractrl,cami2v}_256.yaml:
+DynamiCrafter-256, the MotionCtrl and CameraCtrl baselines, CamI2V-256 and
+CamContextI2V-256 (the paper's model).
 
     model = build("camcontexti2v_256")  # bf16 on cuda, seeded random weights
     model = build_for_training("camcontexti2v_256")  # fp32, train mode
@@ -19,12 +19,14 @@ import torch
 
 from camc2v_tpu_torch.config import (
     AdaptorConfig,
+    CameraControlConfig,
     CamContextI2VConfig,
     CamI2VConfig,
     CLIPTextConfig,
     CLIPVisionConfig,
     DynamiCrafterConfig,
     EpipolarConfig,
+    MotionCtrlConfig,
     PoseEncoderConfig,
     ResamplerConfig,
     UNetConfig,
@@ -109,6 +111,22 @@ def dynamicrafter_256() -> DynamiCrafterConfig:
     return DynamiCrafterConfig(unet=unet_256(), loss_type="l2", **_DIFFUSION_256)
 
 
+def motionctrl_256() -> MotionCtrlConfig:
+    """reference: configs/baseline/motionctrl_256.yaml."""
+    return MotionCtrlConfig(unet=unet_256(camera_mode="motionctrl"), loss_type="l2", **_DIFFUSION_256)
+
+
+def cameractrl_256() -> CameraControlConfig:
+    """reference: configs/baseline/cameractrl_256.yaml (the ray embedding)."""
+    return CameraControlConfig(
+        unet=unet_256(camera_mode="cameractrl"),
+        pose_encoder=POSE_ENCODER_256,
+        camera_embedding="ray",
+        loss_type="l2",
+        **_DIFFUSION_256,
+    )
+
+
 def cami2v_256() -> CamI2VConfig:
     return CamI2VConfig(
         unet=unet_256(use_camera=True, epipolar=EPIPOLAR_256, add_type="add_into_temporal_attn"),
@@ -143,6 +161,8 @@ def camcontexti2v_256() -> CamContextI2VConfig:
 
 PRESETS = {
     "dynamicrafter_256": dynamicrafter_256,
+    "motionctrl_256": motionctrl_256,
+    "cameractrl_256": cameractrl_256,
     "cami2v_256": cami2v_256,
     "camcontexti2v_256": camcontexti2v_256,
 }
@@ -163,11 +183,15 @@ def camcontexti2v_256_train() -> TrainConfig:
 
 
 def _model_class(config: DynamiCrafterConfig):
-    """The port's model class of a configuration."""
+    """The port's model class of a configuration: the baselines by their
+    UNet's `camera_mode`, the others by the configuration's class."""
     from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V
-    from camc2v_tpu_torch.models.camera_base import CamI2V
+    from camc2v_tpu_torch.models.camera_base import CameraCtrl, CamI2V, MotionCtrl
     from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
 
+    baseline = {"motionctrl": MotionCtrl, "cameractrl": CameraCtrl}.get(config.unet.camera_mode)
+    if baseline is not None:
+        return baseline
     for cfg_cls, cls in ((CamContextI2VConfig, CamContextI2V), (CamI2VConfig, CamI2V)):
         if isinstance(config, cfg_cls):
             return cls

@@ -229,6 +229,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               and launches no kernel. The `kernels` line carries each
               kernel's launches in (a) and (b) (`launches_cli_02`,
               `launches_demo_04`).
+ 12. baselines MotionCtrl-256 and CameraCtrl-256 (`presets.build`, full
+              width, seeded weights: every `cc_projection` away from its
+              init, else the branches would be the identity and zero), each
+              in turn: (a) one batch-2B guided UNet call of a batch-1
+              request (captured from the guided closure) with the kernels
+              against `ops.plain_twins()`, relative L2 <= 5e-2, and against
+              the same call without the camera payload, which must move it
+              by more than 5e-2 and 10x the kernels' difference; (b) three
+              requests at `sample`'s defaults (25 DDIM steps, CFG 7.5, eta 1,
+              no rescale): batch 1, batch 2, and camera CFG 1.5 at batch 1
+              (a second, camera-free UNet call a step), each finite (B, 16,
+              256, 256, 3) with s/video, the split and peak memory as in
+              phase 5; counts zeroed just before the requests and read after:
+              K1-K4 launched, K6, K6p and K7 not (summed over both families:
+              `launches_baselines` in the kernels line); (c) `main.visualize.
+              main` headless on the family's configs/demo/models.json entry
+              (OpenCV hidden), one chunk: the `.npz` video the chunk's clipped
+              output, s per chunk, K1-K4 launched; (d) training from the
+              family's yaml (`build_model_from_config`, `build_train_config`:
+              MotionCtrl's temporal attn2 and cc_projections, CameraCtrl's
+              pose encoder and cc_projections, frozen weights fp32 as the
+              yamls set no precision) on RealEstate10K batches of 2 from a
+              synthetic 2-clip tree (phase 9's writer) through the port's
+              loader: one micro-step's trainable gradients with the kernels
+              against `ops.plain_twins()` (block remat on, ResBlock dropout
+              off), relative L2 <= 5e-2, K5 launched; then one optimizer
+              step of `Trainer.fit` (dropout 0.1): loss finite, trainable
+              tensors changed, every other parameter bit-identical; s per
+              micro-step and peak memory.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2784,6 +2813,262 @@ def _entry_points(dev, device_line: str, argv: list) -> dict:
     return out
 
 
+BASELINES = (("motionctrl", "motionctrl_256", "configs/baseline/motionctrl_256.yaml", "MotionCtrl"),
+             ("cameractrl", "cameractrl_256", "configs/baseline/cameractrl_256.yaml", "CameraCtrl"))
+BASELINE_DIR = os.path.join(OUT_DIR, "baselines")
+BASELINE_PATH = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff")
+EPIPOLAR_KERNELS = ("epipolar_flash", "epipolar_flash_precomp", "epipolar_bwd")
+SAMPLE_DEFAULTS = dict(ddim_steps=25, guidance_scale=7.5)  # `sample`'s defaults, spelled out for `generate`
+
+
+def baseline_batch(model, b: int, seed: int, dev) -> dict:
+    """A baseline request: a 256x256 16-frame video, a caption, the bench
+    trajectory's poses and intrinsics (no context frames)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cam = bench_camera(b, dev)
+    return {
+        "video": torch.rand(b, 16, 256, 256, 3, generator=g, device=dev) * 2 - 1,
+        "caption_tokens": torch.randint(0, model.config.clip_text.vocab_size, (b, 77), generator=g, device=dev),
+        "frame_stride": torch.full((b,), 3, dtype=torch.int32, device=dev),
+        "camera_intrinsics": cam["camera_intrinsics"], "RT": cam["RT"],
+    }
+
+
+def _cc_projections_live(model, family: str) -> dict:
+    """How far every cc_projection is from its init (MotionCtrl: the
+    identity on x, zero on RT; CameraCtrl: zero): the seeded weights must
+    make the camera branches non-trivial."""
+    from camc2v_tpu_torch.nn.attention import BasicTransformerBlock
+
+    dist = {}
+    for name, m in model.unet.named_modules():
+        if isinstance(m, BasicTransformerBlock) and m.cc_projection is not None:
+            w = m.cc_projection.weight.float()
+            init = torch.zeros_like(w)
+            if family == "motionctrl":
+                init[:, :w.shape[0]] = torch.eye(w.shape[0], device=w.device)
+            dist[name] = (w - init).abs().max().item()
+    if not dist or min(dist.values()) < 1e-2:
+        _fail(f"baselines {family}: a cc_projection is at its init or missing: {dist}")
+    return dist
+
+
+def _baseline_unet_check(model, family: str, dev) -> dict:
+    """(a) One batch-2B guided UNet call of a batch-1 request (the call the
+    guided closure makes, captured): kernels against `ops.plain_twins()`,
+    and against the same call without the camera payload."""
+    from camc2v_tpu_torch import ops
+
+    calls = []
+    real = model.apply_model
+    with torch.no_grad():
+        batch = baseline_batch(model, 1, 71, dev)
+        z, cond = model.prepare_batch(batch, prefetch_uncond=True)
+        uc = model.build_uncond(cond, 1, (256, 256))
+        cond.pop("_uncond")
+        fn = model.build_guided_fn(cond, uc, model.get_fs(batch), guidance_scale=7.5)
+        model.apply_model = lambda x, t, c, fs: calls.append((x, t, c, fs)) or real(x, t, c, fs)
+        try:
+            fn(torch.randn(z.shape, generator=torch.Generator(device=dev).manual_seed(72), device=dev),
+               torch.full((1,), 500, device=dev), 500)
+        finally:
+            del model.apply_model
+        if len(calls) != 1 or calls[0][0].shape[0] != 2 or "camera" not in calls[0][2]:
+            _fail(f"baselines {family}: the guided step made {len(calls)} UNet calls, not one batch-2B call "
+                  "with the camera payload")
+        x, t, c, fs = calls[0]
+        ops.reset_launch_counts()
+        got = model.apply_model(x, t, c, fs)
+        launches = dict(ops.LAUNCHES)
+        with ops.plain_twins():
+            ref = model.apply_model(x, t, c, fs)
+        free = model.apply_model(x, t, {k: v for k, v in c.items() if k != "camera"}, fs)
+    _rel_check(f"{family} guided unet step (2,16,32,32,8) with camera", got, ref)
+    rel = ((got - ref).norm() / ref.norm()).item()
+    moved = ((got - free).norm() / got.norm()).item()
+    print(f"  {family}: the camera payload moves the step by rel_l2={moved:.3e} (kernels vs twins {rel:.3e}); "
+          f"launches {launches}", flush=True)
+    if not moved > max(5e-2, 10 * rel):
+        _fail(f"baselines {family}: the camera branch is not live (rel_l2 with vs without payload {moved:.3e})")
+    if not all(launches[n] > 0 for n in BASELINE_PATH) or any(launches[n] for n in EPIPOLAR_KERNELS):
+        _fail(f"baselines {family}: the guided step's launches {launches}")
+    return dict(rel_l2_kernels_vs_twins=rel, rel_l2_camera_vs_none=moved, launches=launches)
+
+
+def _baseline_demo(family: str, demo_name: str, img_path: str, device_line: str) -> dict:
+    """(c) the 04 demo headless on the family's models.json entry, one chunk."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.main import visualize
+    from camc2v_tpu_torch.utils.save_video import to_uint8
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with _without_opencv(), _recorded_samples() as calls:
+        t0 = time.perf_counter()
+        path = visualize.main(["--models-json", "configs/demo/models.json", "--model", demo_name, "--image", img_path,
+                               "--prompt", "a room with a window", "--trajectory-name", "zoom in", "--chunks", "1",
+                               "--out", os.path.join(BASELINE_DIR, f"demo_{family}")])
+        total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak, sample_peak = _peaks(calls)
+    frames = _npz_frames(path)
+    if len(calls) != 1 or not torch.isfinite(calls[0]["out"]).all() or not np.array_equal(
+            frames, to_uint8(calls[0]["out"][0].float().cpu().numpy())):
+        _fail(f"04 demo {demo_name}: {len(calls)} chunks, or the video is not the chunk's finite output")
+    print(f"  (c) 04 demo {demo_name}: {path}, {frames.shape[0]} frames, s per chunk "
+          f"{[round(c['seconds'], 3) for c in calls]}; main() {total:.3f} s; peak {peak:.2f} GiB over main(), "
+          f"{sample_peak:.2f} GiB over the chunk [{device_line}]; launches {launches}", flush=True)
+    if not all(launches[n] > 0 for n in BASELINE_PATH) or any(launches[n] for n in EPIPOLAR_KERNELS):
+        _fail(f"04 demo {demo_name}: launches {launches}")
+    return dict(s_per_chunk=[c["seconds"] for c in calls], main_s=total, peak_gib=peak, sample_peak_gib=sample_peak,
+                launches=launches)
+
+
+def _baseline_train(family: str, yaml_path: str, loader, tokenizer, dev, device_line: str) -> dict:
+    """(d) the yaml's model and trainable set, the synthetic RealEstate10K
+    batches: one micro-step's trainable gradients with the kernels against
+    `ops.plain_twins()` (block remat on, ResBlock dropout off), then one
+    optimizer step of `Trainer.fit` with the yaml's dropout."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.config_yaml import build_model_from_config, build_train_config, load_yaml
+    from camc2v_tpu_torch.main.harness import Trainer, batch_to_device
+    from camc2v_tpu_torch.parallel import trainer as TR
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_yaml(yaml_path)
+    model, _ = build_model_from_config(cfg, device=dev, seed=4321)
+    tcfg = build_train_config(cfg)
+    state = TR.init_train_state(tcfg, model)
+    named = dict(model.named_parameters())
+    trainable = set(state.names)
+    kinds = {k: sum(k in n for n in trainable) for k in ("cc_projection", ".attn2.", "pose_encoder.")}
+    n_train = sum(p.numel() for p in state.params)
+    print(f"  (d) {family} training from {yaml_path}: {n_train / 1e6:.2f}M trainable fp32 parameters in "
+          f"{len(state.params)} tensors {kinds} of {sum(p.numel() for p in named.values()) / 1e6:.1f}M (patterns "
+          f"{tcfg.trainable_patterns}, frozen dtype {tcfg.frozen_param_dtype})", flush=True)
+    for raw in loader:
+        batch = batch_to_device(raw, dev, tokenizer)
+        break
+
+    def grads():
+        loss, _, g = TR.loss_and_grads(model, state.params, batch, 5)
+        return loss.detach(), torch.cat([x.flatten() for x in g])
+
+    with _DropoutOff(model):
+        ops.reset_launch_counts()
+        loss_k, g_k = grads()
+        launches = dict(ops.LAUNCHES)
+        with ops.plain_twins():
+            loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    rel = ((g_k - g_p).norm() / g_p.norm()).item()
+    finite = bool(torch.isfinite(g_k).all())
+    print(f"  (d) {family} gradients batch {batch['video'].shape[0]}, kernels vs plain twins: rel_l2={rel:.3e} "
+          f"tol=5e-2, loss {loss_k.item():.6f} vs {loss_p.item():.6f}, |g| {g_p.norm().item():.4e}, "
+          f"finite={finite}; launches {launches}", flush=True)
+    if not (finite and rel <= 5e-2 and g_p.norm() > 0):
+        _fail(f"baselines {family}: the trainable gradients with the kernels disagree with the plain twins")
+    if not all(launches[n] > 0 for n in BASELINE_PATH + ("flash_bwd",)) or any(launches[n] for n in
+                                                                               EPIPOLAR_KERNELS):
+        _fail(f"baselines {family}: the gradient step's launches {launches}")
+    del g_k, g_p
+    frozen_before = {n: p.detach().clone() for n, p in named.items() if n not in trainable}
+    train_before = [p.detach().clone() for p in state.params]
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, tcfg, loader, seed=0, tokenizer=tokenizer, log_every_n_steps=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, max_steps=tcfg.accumulate_grad_batches)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    fit_launches = dict(ops.LAUNCHES)
+    hist = trainer.history
+    changed = sum(not torch.equal(p, p0) for p, p0 in zip(state.params, train_before))
+    frozen_same = all(torch.equal(named[n], p0) for n, p0 in frozen_before.items())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  (d) {family} one optimizer step ({tcfg.accumulate_grad_batches} micro-step, dropout "
+          f"{model.config.unet.dropout}): {step_s:.3f} s per micro-step (host clock, synchronised), peak "
+          f"{peak:.2f} GiB [{device_line}]; loss {[round(h['loss'], 5) for h in hist]} grad_norm "
+          f"{[round(h['grad_norm'], 4) for h in hist]}; {changed} of {len(state.params)} trainable tensors "
+          f"changed; frozen bit-identical: {frozen_same}; launches {fit_launches}", flush=True)
+    finite = np.isfinite([h[k] for h in hist for k in ("loss", "grad_norm")])
+    if len(hist) != tcfg.accumulate_grad_batches or not finite.all() or changed < len(state.params) // 2 \
+            or not frozen_same:
+        _fail(f"baselines {family}: the optimizer step: {hist}, {changed} changed, frozen same {frozen_same}")
+    if not all(fit_launches[n] > 0 for n in BASELINE_PATH + ("flash_bwd",)) or any(fit_launches[n] for n in
+                                                                                   EPIPOLAR_KERNELS):
+        _fail(f"baselines {family}: the optimizer step's launches {fit_launches}")
+    del frozen_before, train_before, trainer, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(trainable_params=n_train, grad_rel_l2=rel, loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+                grad_launches=launches, micro_step_s=step_s, peak_gib=peak, fit_launches=fit_launches,
+                losses=[h["loss"] for h in hist])
+
+
+def baselines_phase(dev, device_line: str) -> dict:
+    """Phase 12: MotionCtrl-256 and CameraCtrl-256 (see the module docstring)."""
+    from camc2v_tpu_torch import ops, presets
+    from camc2v_tpu_torch.data.image_io import write_png
+    from camc2v_tpu_torch.data.realestate10k import DataLoader, RealEstate10K
+    from camc2v_tpu_torch.data.tokenizer import default_tokenizer
+
+    shutil.rmtree(BASELINE_DIR, ignore_errors=True)
+    os.makedirs(BASELINE_DIR)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+    image = np.stack([127.5 + 120 * np.sin(xx / (19 + 7 * c) + yy / 27 + c) for c in range(3)], -1).astype(np.uint8)
+    img_path = os.path.join(BASELINE_DIR, "input.png")
+    write_png(img_path, image)
+    tree = write_re10k_tree(os.path.join(BASELINE_DIR, "re10k"), ["b0", "b1"], 3)
+    merges = os.path.join(BASELINE_DIR, "merges.txt")
+    with open(merges, "w") as f:
+        f.write("\n".join(MERGES) + "\n")
+    tokenizer = default_tokenizer(merges, 77)
+    out, total = {}, {}
+    for family, preset, yaml_path, demo_name in BASELINES:
+        res = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = presets.build(preset, seed=4321)
+        res["cc_projection_distance_from_init"] = _cc_projections_live(model, family)
+        print(f"  {family}: {len(res['cc_projection_distance_from_init'])} cc_projections, the nearest "
+              f"{min(res['cc_projection_distance_from_init'].values()):.3f} (max abs) from its init", flush=True)
+        res["unet_step"] = _baseline_unet_check(model, family, dev)
+        # (b) requests: batch 1 and 2 at `sample`'s defaults, then camera CFG 1.5 at batch 1
+        plan = ((1, 81, SAMPLE_DEFAULTS), (2, 82, SAMPLE_DEFAULTS), (1, 83, dict(SAMPLE_DEFAULTS, camera_cfg=1.5)))
+        ops.reset_launch_counts()
+        res["requests"] = generate(model, lambda b, seed: baseline_batch(model, b, seed, dev), family, device_line,
+                                   plan=plan)
+        launches = dict(ops.LAUNCHES)
+        calls = [len(r["unet_calls_ms"]) for r in res["requests"]]
+        print(f"  (b) {family} launches over the three requests {launches}; UNet calls {calls} (25 steps: one "
+              f"batch-2B call a step, camera CFG adds the camera-free call)", flush=True)
+        if calls != [25, 25, 50] or not all(launches[n] > 0 for n in BASELINE_PATH) or any(
+                launches[n] for n in EPIPOLAR_KERNELS):
+            _fail(f"baselines {family}: the requests' UNet calls {calls} or launches {launches}")
+        res["launches"] = launches
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model
+        res["demo_04"] = _baseline_demo(family, demo_name, img_path, device_line)
+        ds = RealEstate10K(tokenizer=tokenizer, seed=4321, video_length=16, resolution=(256, 256),
+                           frame_stride=(1, 10), **tree)
+        loader = DataLoader(ds, batch_size=2, shuffle=True, seed=4321, num_workers=2)
+        try:
+            res["train"] = _baseline_train(family, yaml_path, loader, tokenizer, dev, device_line)
+        finally:
+            loader.close()
+        out[family] = res
+    out["launches"] = total
+    print(f"[12 launches] baselines' requests {total}", flush=True)
+    return out
+
+
 # registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
 # kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
 # and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
@@ -2937,6 +3222,12 @@ def main() -> None:
     with _switches("0"):
         entry = entry_points_phase(dev, device_line)
 
+    print("[12 baselines] MotionCtrl-256 and CameraCtrl-256: a guided UNet step against the twins, 25-step DDIM "
+          "requests (batch 1, 2; camera CFG 1.5), the 04 demo on their models.json entries, a training step from "
+          "their yamls", flush=True)
+    with _switches("0"):
+        baselines = baselines_phase(dev, device_line)
+
     first = train_run["vae_batch_layers"]["first_differing"]
     if first is not None and first["kind"].startswith("GroupNorm"):
         _fail(f"the VAE's batch dependence starts at a GroupNorm ({first})")
@@ -2944,7 +3235,8 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
                        launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
-                       generation_02=gen02, entry_points=entry, kernels=checks), f, indent=1, default=str)
+                       generation_02=gen02, entry_points=entry, baselines=baselines, kernels=checks), f, indent=1,
+                  default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
         "flash_attention": ("camc2v_tpu_torch/csrc/flash_attention.cu", "camc2v_tpu/ops/flash_attention.py:170"),
@@ -2973,7 +3265,7 @@ def main() -> None:
              launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
              launches_train_run=train_run["launches"][name], launches_generation_02=gen02["launches"][name],
              launches_cli_02=entry["cli_02"]["launches"][name], launches_demo_04=entry["demo_04"]["launches"][name],
-             **{k: checks[name][k] for k in keys})
+             launches_baselines=baselines["launches"][name], **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
     kernels[-1]["launches_phase3"] = checks["phase3_launches"]["groupnorm_big"]

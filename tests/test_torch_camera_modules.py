@@ -197,7 +197,7 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="plain"):
         Epipolar(pc.EpipolarConfig(epipolar_hybrid_attention=True), 64, 2)
     cfg = tiny_camcontext_config()
-    with pytest.raises(NotImplementedError, match="camera_mode"):
+    with pytest.raises(ValueError, match="camera_mode"):  # a baseline's injection on an epipolar UNet
         CamContextI2V(dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, camera_mode="motionctrl")))
     with pytest.raises(NotImplementedError, match="cross-normalisation"):
         CamContextI2V(dataclasses.replace(cfg, use_cross_normalization=True))

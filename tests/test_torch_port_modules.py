@@ -161,7 +161,7 @@ def test_preset_matches_jax_field_by_field():
     compare_preset("dynamicrafter_256")
 
 
-@pytest.mark.parametrize("name", ["cami2v_256", "camcontexti2v_256"])
+@pytest.mark.parametrize("name", ["motionctrl_256", "cameractrl_256", "cami2v_256", "camcontexti2v_256"])
 def test_camera_presets_match_jax_field_by_field(name):
     compare_preset(name)
 

@@ -53,8 +53,8 @@ def test_yaml_reader_matches_safe_load(path):
 @pytest.mark.parametrize("path", YAMLS)
 def test_configs_match_the_jax_bridge(path):
     """The port's model and train configurations of every yaml, field by
-    field against the JAX bridge's; MotionCtrl and CameraCtrl build their
-    configurations and raise at model construction."""
+    field against the JAX bridge's, and the port's model class of each
+    (MotionCtrl and CameraCtrl included) the JAX bridge's."""
     from camc2v_tpu import config_yaml as jcy
     from test_torch_port_modules import port_config
 
@@ -69,11 +69,7 @@ def test_configs_match_the_jax_bridge(path):
         jv = getattr(jtrain, f.name)
         assert getattr(ttrain, f.name) == (float(jv) if isinstance(getattr(ttrain, f.name), float) else jv), f.name
     assert not jtrain.shard_params
-    if cls_name in ("MotionCtrl", "CameraCtrl"):
-        with pytest.raises(NotImplementedError, match="camera_mode"):
-            tcy.build_model_from_config(cfg, device="cpu")
-    else:
-        assert tcy.model_class(cls_name).__name__ == type(jmodel).__name__
+    assert tcy.model_class(cls_name).__name__ == type(jmodel).__name__
     assert jpre == cfg["model"].get("pretrained_checkpoint")
 
 
