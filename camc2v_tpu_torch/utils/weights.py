@@ -1,4 +1,4 @@
-"""Weights of the port: the JAX bridge, seeded random init, inference cast.
+"""Weights of the port: the JAX bridges, seeded random init, inference cast.
 
 `load_jax_params(module, flat)` fills a port module from the JAX package's
 parameters, given as a flat `{"unet/in_0_res/in_conv/kernel": ndarray}` dict
@@ -12,6 +12,16 @@ JAX names too (`.../pluker_projection`, `.../epipolar/epipolar_attn/
 and `zero_conv`, a 3x3x3 DHWIO kernel). The load is strict: every
 parameter of the module is filled exactly once, every JAX leaf is used or
 matched by `skip`, and shapes must agree; anything else raises.
+
+`load_i3d_variables(model, variables)` fills the FVD's I3D
+(`eval/fvd.py::InceptionI3D`) from the JAX variables dict, nested dicts of
+numpy arrays as `FVDScorer` reads them from a converted `.npz`:
+`params/<path>/Conv_0/{kernel,bias}` -> `<path>.conv.{weight,bias}` (DHWIO ->
+OIDHW), `params/<path>/BatchNorm_0/{scale,bias}` -> `<path>.bn.{weight,bias}`,
+`batch_stats/<path>/BatchNorm_0/{mean,var}` -> `<path>.bn.running_{mean,var}`.
+It is as strict, over the parameters and the BatchNorm buffers alike (a
+running statistic left at its init would pass unseen otherwise).
+`i3d_variables(model)` is its inverse.
 """
 
 from __future__ import annotations
@@ -78,6 +88,76 @@ def load_jax_params(module: nn.Module, flat: Mapping[str, np.ndarray], *, skip: 
             f"load_jax_params: {len(unused)} JAX leaves unused {unused[:8]}, "
             f"{len(missing)} port params not filled {missing[:8]}"
         )
+
+
+_I3D_LEAVES = {("params", "Conv_0", "kernel"): "conv.weight", ("params", "Conv_0", "bias"): "conv.bias",
+               ("params", "BatchNorm_0", "scale"): "bn.weight", ("params", "BatchNorm_0", "bias"): "bn.bias",
+               ("batch_stats", "BatchNorm_0", "mean"): "bn.running_mean",
+               ("batch_stats", "BatchNorm_0", "var"): "bn.running_var"}
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def _i3d_targets(model: nn.Module) -> dict:
+    targets = dict(model.named_parameters())
+    targets.update({n: b for n, b in model.named_buffers() if n.endswith((".running_mean", ".running_var"))})
+    return targets
+
+
+def load_i3d_variables(model: nn.Module, variables: Mapping) -> None:
+    """Strictly copy JAX I3D variables into `model` (see the module docstring)."""
+    targets = _i3d_targets(model)
+    filled: set[str] = set()
+    unused = []
+    for path, value in _flatten(variables).items():
+        leaf = _I3D_LEAVES.get((path[0], path[-2], path[-1]))
+        if leaf is None:
+            unused.append("/".join(path))
+            continue
+        name = ".".join(path[1:-2] + (leaf,))
+        if name not in targets:
+            unused.append("/".join(path))
+            continue
+        if name in filled:
+            raise ValueError(f"load_i3d_variables: {name} filled twice")
+        arr = value.transpose(4, 3, 0, 1, 2) if path[-1] == "kernel" else value
+        t = targets[name]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"load_i3d_variables: {'/'.join(path)} {arr.shape} -> {name} {tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.array(arr, order="C", copy=True)).to(t.dtype))
+        filled.add(name)
+    missing = sorted(set(targets) - filled)
+    if unused or missing:
+        raise ValueError(
+            f"load_i3d_variables: {len(unused)} JAX leaves unused {unused[:8]}, "
+            f"{len(missing)} port tensors not filled {missing[:8]}"
+        )
+
+
+def i3d_variables(model: nn.Module) -> dict:
+    """The JAX variables dict of `model` (the inverse of `load_i3d_variables`)."""
+    by_leaf = {v: k for k, v in _I3D_LEAVES.items()}
+    out: dict = {}
+    for name, t in _i3d_targets(model).items():
+        parts = name.split(".")
+        collection, module, leaf = by_leaf[".".join(parts[-2:])]
+        value = t.detach().cpu().numpy()
+        if leaf == "kernel":
+            value = value.transpose(2, 3, 4, 1, 0)
+        node = out.setdefault(collection, {})
+        for p in parts[:-2] + [module]:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out
 
 
 @torch.no_grad()

@@ -258,6 +258,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               step of `Trainer.fit` (dropout 0.1): loss finite, trainable
               tensors changed, every other parameter bit-identical; s per
               micro-step and peak memory.
+ 13. evaluate the port's 03 CLI (`camc2v_tpu_torch.main.evaluate.main`, in
+              this process) on phase 11's trees: (a) (a)'s `.npz` tree (4
+              videos), and (d)'s `.mp4` tree where (d) ran, each with
+              --extended --fvd and `--i3d-weights` a seeded I3D
+              (`eval/fvd.py::init_i3d`, BN statistics and scales off 0/1)
+              written in the converter's format (seeded weights: the FVD
+              value is not meaningful). Fails unless the row's MSE / RMSE /
+              PSNR / SSIM, and each video's, equal the same functions on the
+              CPU on the same decoded frames within 1e-9 relative (float64 on
+              both), the I3D features (videogpt logits, stylegan pool) of the
+              generated and ground-truth videos on the card equal the port's
+              I3D on the CPU within 1e-4 relative L2 per video, the I3D
+              parameters sit on the card and both FVDs are finite; prints
+              the frame metrics' s/video on the card and on the CPU, I3D
+              videos/s at batch 8 over 16 clips (CUDA events), the Fréchet
+              seconds on the host and the peak memory. (b) `--camera` where
+              colmap and glomap are on PATH; otherwise one line says
+              RotErr / TransErr / CamMC were not run, and the CLI with
+              `--camera` must raise RuntimeError. (c) the counts zeroed
+              before the phase: no kernel may launch in it
+              (`launches_evaluate` in the kernels line).
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -3069,6 +3090,136 @@ def baselines_phase(dev, device_line: str) -> dict:
     return out
 
 
+EVAL_DIR = os.path.join(OUT_DIR, "evaluation")
+EVAL_RTOL = 1e-9  # frame metrics on the card against the CPU, both float64, relative
+I3D_RTOL = 1e-4  # I3D features on the card against the CPU, f32 with TF32 off, relative L2 per video
+I3D_SEED = 1313  # the seeded I3D of phase 13: its FVD value means nothing
+EVAL_METRICS = ("mse", "rmse", "psnr", "ssim")
+
+
+def _timed_metrics(pairs, device) -> tuple[list, list]:
+    """`video_pair_metrics` of each (gt, gen) pair on `device` (LPIPS off),
+    and its seconds, synchronised on both sides, after a warm-up call."""
+    from camc2v_tpu_torch.eval.video_metrics import video_pair_metrics
+
+    video_pair_metrics(*pairs[0], with_lpips=False, device=device)
+    rows, secs = [], []
+    for gt, gen in pairs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(video_pair_metrics(gt, gen, with_lpips=False, device=device))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return rows, secs
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def _evaluate_tree(dev, tree: str, label: str, weights: str, device_line: str) -> dict:
+    """(a) on one 02-CLI tree: `main.evaluate.main` on the card with
+    --extended --fvd, its frame metrics against the same functions on the
+    CPU, each I3D variant's features on the card against the CPU's, timed."""
+    from camc2v_tpu_torch.eval.fvd import FVDScorer, frechet_distance, gaussian_stats
+    from camc2v_tpu_torch.main import evaluate
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    row = evaluate.main(["--path", tree, "--output", os.path.join(EVAL_DIR, label), "--extended", "--fvd",
+                         "--i3d-weights", weights])
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dirs = evaluate.video_dirs(tree)
+    if not dirs or row["n_videos"] != len(dirs):
+        _fail(f"evaluate {label}: {row['n_videos']} videos evaluated, the tree holds {len(dirs)}")
+    pairs = [(evaluate.load_video(evaluate.video_path(d, "ground_truth")),
+              evaluate.load_video(evaluate.video_path(d, "generated"))) for d in dirs]
+    card, card_s = _timed_metrics(pairs, dev)
+    host, host_s = _timed_metrics(pairs, "cpu")
+    errs = {k: max([_rel(row[k], float(np.mean([m[k] for m in host])))] +
+                   [_rel(c[k], h[k]) for c, h in zip(card, host)]) for k in EVAL_METRICS}
+    print(f"  (a) {label}: {len(dirs)} videos of {pairs[0][1].shape}; row "
+          f"{ {k: row[k] for k in EVAL_METRICS} }; largest relative difference from the CPU (the row and each "
+          f"video) {errs}, limit {EVAL_RTOL}; frame metrics s/video on the card {float(np.mean(card_s))!r} (each "
+          f"{card_s}), on the CPU {float(np.mean(host_s))!r}; main() {main_s!r} s, peak {peak!r} GiB [{device_line}]",
+          flush=True)
+    if any(e > EVAL_RTOL for e in errs.values()):
+        _fail(f"evaluate {label}: the card's frame metrics differ from the CPU's: {errs}")
+
+    real, gen = evaluate.fvd_videos(dirs)
+    clips = np.concatenate([real, gen] * (16 // (2 * len(dirs)) or 1))[:16]
+    out = dict(row=row, main_s=main_s, peak_gib=peak, metrics_s_per_video_card=float(np.mean(card_s)),
+               metrics_s_per_video_cpu=float(np.mean(host_s)), metric_errs=errs)
+    for variant in ("videogpt", "stylegan"):
+        on_card = FVDScorer(weights, variant, device=dev)
+        if next(on_card.model.parameters()).device.type != "cuda":
+            _fail(f"evaluate {label}: the I3D parameters are not on the card")
+        f_card = np.concatenate([on_card.extract_features(real), on_card.extract_features(gen)])
+        on_host = FVDScorer(weights, variant, device="cpu")
+        f_host = np.concatenate([on_host.extract_features(real), on_host.extract_features(gen)])
+        i3d_errs = [float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(f_card, f_host)]
+        on_card.extract_features(clips[:8])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        on_card.extract_features(clips)
+        end.record()
+        torch.cuda.synchronize()
+        i3d_ms = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        fd = frechet_distance(*gaussian_stats(f_card[:len(dirs)]), *gaussian_stats(f_card[len(dirs):]))
+        frechet_s = time.perf_counter() - t0
+        print(f"  (a) {label} I3D {variant} ({f_card.shape[1]} features; seeded weights: FVD value not "
+              f"meaningful): relative L2 card vs CPU per video {i3d_errs}, limit {I3D_RTOL}; "
+              f"{len(clips) / i3d_ms * 1e3!r} videos/s at batch 8 over {len(clips)} clips of {clips.shape[1:]} "
+              f"(CUDA events, the resize to 224 and the copies in); Fréchet {frechet_s!r} s on the host; FVD "
+              f"{row['fvd_' + variant]!r} in the row, {fd!r} from these features [{device_line}]", flush=True)
+        if max(i3d_errs) > I3D_RTOL or not (np.isfinite(row["fvd_" + variant]) and np.isfinite(fd)):
+            _fail(f"evaluate {label} {variant}: I3D features off the CPU's ({i3d_errs}) or an FVD not finite")
+        out[variant] = dict(i3d_rel_l2=i3d_errs, videos_per_s=len(clips) / i3d_ms * 1e3, frechet_s=frechet_s,
+                            fvd_row=row["fvd_" + variant], fvd_features=fd)
+    return out
+
+
+def evaluation_phase(dev, device_line: str, trees: dict) -> dict:
+    """Phase 13: the port's 03 CLI on the 02 CLI's trees `{label: path}`
+    (see the module docstring)."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.eval.colmap import have_colmap
+    from camc2v_tpu_torch.eval.fvd import InceptionI3D, init_i3d, write_i3d_weights
+    from camc2v_tpu_torch.main import evaluate
+    from camc2v_tpu_torch.utils.weights import i3d_variables
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    os.makedirs(EVAL_DIR)
+    weights = os.path.join(EVAL_DIR, "i3d_seeded.npz")
+    write_i3d_weights(weights, i3d_variables(init_i3d(InceptionI3D(), torch.Generator().manual_seed(I3D_SEED))))
+    ops.reset_launch_counts()
+    out = {label: _evaluate_tree(dev, tree, label, weights, device_line) for label, tree in trees.items()}
+    # (b) camera metrics: COLMAP + GLOMAP where both are on PATH
+    tree = next(iter(trees.values()))
+    camera_argv = ["--path", tree, "--output", os.path.join(EVAL_DIR, "camera"), "--camera"]
+    if have_colmap():
+        out["camera"] = evaluate.main(camera_argv)
+        print(f"  (b) COLMAP + GLOMAP ran: {out['camera']} [{device_line}]", flush=True)
+    else:
+        try:
+            evaluate.main(camera_argv)
+        except RuntimeError as e:
+            out["camera"] = f"not run: {e}"
+        else:
+            _fail("evaluate --camera: no RuntimeError without colmap/glomap")
+        print(f"  (b) colmap and glomap are not on PATH: RotErr / TransErr / CamMC not run; --camera raised "
+              f"RuntimeError({out['camera'][9:]!r})", flush=True)
+    out["launches"] = dict(ops.LAUNCHES)
+    print(f"[13 launches] evaluation {out['launches']}", flush=True)
+    if any(out["launches"].values()):
+        _fail(f"evaluation launched a diffusion kernel: {out['launches']}")
+    return out
+
+
 # registers a thread of each attention-core kernel takes (`-Xptxas -v`), by
 # kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
 # and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
@@ -3228,6 +3379,13 @@ def main() -> None:
     with _switches("0"):
         baselines = baselines_phase(dev, device_line)
 
+    print("[13 evaluate] the port's 03 CLI on phase 11's trees: frame metrics and I3D features on the card "
+          "against the CPU, FVD with a seeded I3D, the camera metrics where COLMAP is installed", flush=True)
+    trees = {"cli_02_npz": os.path.join(ENTRY_DIR, "generation")}
+    if "cli_02_mp4" in entry:
+        trees["cli_02_mp4"] = os.path.join(ENTRY_DIR, "generation_mp4")
+    evaluation = evaluation_phase(dev, device_line, trees)
+
     first = train_run["vae_batch_layers"]["first_differing"]
     if first is not None and first["kind"].startswith("GroupNorm"):
         _fail(f"the VAE's batch dependence starts at a GroupNorm ({first})")
@@ -3235,7 +3393,8 @@ def main() -> None:
     with open(os.path.join(OUT_DIR, "chip_smoke_summary.json"), "w") as f:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
                        launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
-                       generation_02=gen02, entry_points=entry, baselines=baselines, kernels=checks), f, indent=1,
+                       generation_02=gen02, entry_points=entry, baselines=baselines, evaluation=evaluation,
+                       kernels=checks), f, indent=1,
                   default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
@@ -3265,7 +3424,8 @@ def main() -> None:
              launches_generation=cc_launches[name], launches_routes=routes["launches"][name],
              launches_train_run=train_run["launches"][name], launches_generation_02=gen02["launches"][name],
              launches_cli_02=entry["cli_02"]["launches"][name], launches_demo_04=entry["demo_04"]["launches"][name],
-             launches_baselines=baselines["launches"][name], **{k: checks[name][k] for k in keys})
+             launches_baselines=baselines["launches"][name], launches_evaluate=evaluation["launches"][name],
+             **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
     kernels[-1]["launches_phase3"] = checks["phase3_launches"]["groupnorm_big"]

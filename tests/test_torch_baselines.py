@@ -9,9 +9,8 @@ leaf zero, so MotionCtrl's projection is not the identity and CameraCtrl's
 adds something), and goes into the port by the strict `load_jax_params`.
 Checked: the parameter names; both camera branches of
 `BasicTransformerBlock` and MotionCtrl's `init_attn`, module against module;
-`camera_condition` at conditioning frames 0 and 1; `apply_model`; `sample`
-end to end (2 DDIM steps, eta 1, CFG 7.5 with rescale 0.7, the noise of the
-JAX key chain; MotionCtrl's with camera CFG 1.5); the trainable set each yaml
+`camera_condition` at conditioning frames 0 and 1; `apply_model` (`sample`
+end to end is in test_torch_baselines_sample.py); the trainable set each yaml
 selects; the reference `.pt` import of both families' keys, `cc_projection`
 included, against the JAX import. At TINY every path is the plain one on
 both sides. Tolerance: 1e-4 of the output's max |value| (f32, summation
@@ -31,7 +30,7 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from refload import my_model  # noqa: E402
-from test_torch_camera_generate import STEPS, batches, jax_noise  # noqa: E402
+from test_torch_camera_generate import batches  # noqa: E402
 from test_torch_port_modules import (  # noqa: E402,F401
     _normal,
     assert_close,
@@ -49,16 +48,6 @@ from camc2v_tpu_torch.utils.weights import _to_torch_layout, jax_to_torch_name, 
 REPO = Path(__file__).resolve().parents[1]
 FAMILIES = ("motionctrl", "cameractrl")
 YAML = {"motionctrl": "configs/baseline/motionctrl_256.yaml", "cameractrl": "configs/baseline/cameractrl_256.yaml"}
-KEY = jax.random.key(13)
-
-
-def sample_kw(family):
-    """2 DDIM steps, eta 1, CFG 7.5 with rescale 0.7; MotionCtrl's request
-    also with camera CFG 1.5 (cosine): a third UNet call a step, without
-    the payload, so through MotionCtrl's plain branch."""
-    return dict(ddim_steps=STEPS, ddim_eta=1.0, guidance_scale=7.5, guidance_rescale=0.7,
-                timestep_spacing="uniform_trailing", camera_cfg=1.5 if family == "motionctrl" else 1.0,
-                camera_cfg_scheduler="cosine")
 T_ = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
 
 
@@ -79,35 +68,39 @@ def step_inputs():
     return x, c_concat, ctx, np.array([10, 700], np.int32)
 
 
+def baseline_pair(family):
+    """(JAX model, seeded JAX parameters, port model holding them)."""
+    from camc2v_tpu_torch.models.camera_base import CameraCtrl, MotionCtrl
+
+    jm = tiny_baseline(family)
+    shapes = jax.eval_shape(lambda k: jm.init_params(k, (32, 32)), jax.random.key(0))
+    params = seeded_tree(shapes, seed=1)
+    tm = {"motionctrl": MotionCtrl, "cameractrl": CameraCtrl}[family](port_config(jm.config), dtype=torch.float32)
+    load_jax_params(tm, flat(params))
+    return jm, params, tm
+
+
 @pytest.fixture(scope="module")
 def built():
     """family -> (JAX model, seeded JAX parameters, port model holding them,
     the JAX reference outputs), built once per family. The references come
     from one compiled JAX program: `camera_condition` at conditioning frames
-    0 and 1, one `apply_model` on the payload of frames (0, 1), and
-    `sample` (MotionCtrl's with camera CFG 1.5, cosine)."""
-    from camc2v_tpu_torch.models.camera_base import CameraCtrl, MotionCtrl
-
+    0 and 1 and one `apply_model` on the payload of frames (0, 1). (`sample`
+    has its own program, in test_torch_baselines_sample.py.)"""
     cache = {}
 
     def get(family):
         if family not in cache:
-            jm = tiny_baseline(family)
-            shapes = jax.eval_shape(lambda k: jm.init_params(k, (32, 32)), jax.random.key(0))
-            params = seeded_tree(shapes, seed=1)
-            tm = {"motionctrl": MotionCtrl, "cameractrl": CameraCtrl}[family](port_config(jm.config),
-                                                                              dtype=torch.float32)
-            load_jax_params(tm, flat(params))
+            jm, params, tm = baseline_pair(family)
 
-            def reference(p, batch, key, x, c_concat, ctx, t):
+            def reference(p, batch, x, c_concat, ctx, t):
                 camera = [jm.camera_condition(p, batch, jnp.full((2,), i, jnp.int32), 1.0) for i in (0, 1)]
                 cond = {"c_concat": c_concat, "c_crossattn": ctx,
                         "camera": jm.camera_condition(p, batch, jnp.array([0, 1], jnp.int32), 1.0)}
-                eps = jm.apply_model(p, x, t, cond, jm.get_fs(batch))
-                return dict(camera=camera, eps=eps, sample=jm.sample(p, batch, key, **sample_kw(family)))
+                return dict(camera=camera, eps=jm.apply_model(p, x, t, cond, jm.get_fs(batch)))
 
             jb, _ = batches(n_ctx=0)
-            ref = jit_o0(reference)(params, jb, KEY, *(jnp.asarray(a) for a in step_inputs()))
+            ref = jit_o0(reference)(params, jb, *(jnp.asarray(a) for a in step_inputs()))
             cache[family] = jm, params, tm, jax.tree_util.tree_map(np.asarray, ref)
         return cache[family]
 
@@ -208,20 +201,6 @@ def test_apply_model_matches_jax(built, family):
     assert got.shape == (2, 4, 4, 4, 4)
     assert_close(got, ref)
     assert np.abs(got - plain).max() > 1e-2 * np.abs(ref).max()
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_sample_matches_jax(built, family):
-    """`sample` end to end, decoded, on the noise of the JAX key chain
-    (`sample_kw`: MotionCtrl's request with camera CFG)."""
-    _, _, tm, refs = built(family)
-    _, tb = batches(n_ctx=0)
-    ref = refs["sample"]
-    x_t, noise = jax_noise(KEY, (2, 4, 4, 4, 4))
-    got = tm.sample(tb, x_T=x_t, step_noise=noise, **sample_kw(family)).numpy()
-    assert got.shape == ref.shape == (2, 4, 32, 32, 3)
-    assert float(np.abs(ref).max()) > 0.1
-    assert_close(got, ref)
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -11,8 +11,9 @@ projections of a fresh JAX init would make the camera branches vacuous):
     the downsampling block and the positional encoding);
   * `MultiLatentEpipolarAdaptor` on its kernel path (num_queries = hw = 256,
     2 target frames over the cond frame and 1 context frame) and on its
-    dense-mask path;
-  * one `CamI2V` guided denoise step at TINY on the fused batch-2B path.
+    dense-mask path.
+One `CamI2V` guided denoise step at TINY on the fused batch-2B path is in
+`test_torch_camera_sampling.py`.
 
 Tolerance: 1e-4 of the output's max |value| (f32, summation order only).
 """
@@ -29,8 +30,7 @@ import torch
 
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
-from test_torch_camera_generate import batches, perturb_draws, plain_tiny, seeded_params_for  # noqa: E402
-from test_torch_port_modules import _normal, assert_close, flat, jax_params, jit_o0, port_config, run_both  # noqa: E402
+from test_torch_port_modules import _normal, assert_close, flat, jax_params, jit_o0, run_both  # noqa: E402
 
 from camc2v_tpu.camera import geometry as JG  # noqa: E402
 from camc2v_tpu.ops import epipolar_flash as jef  # noqa: E402
@@ -207,39 +207,3 @@ def test_unported_variants_raise():
         CamContextI2V(dataclasses.replace(cfg, multi_cond_strategy="max"))
 
 
-def test_cami2v_fused_guided_step_matches_jax():
-    """CamI2V's cond and uncond contexts have one shape, so the guided step
-    runs as one batch-2B UNet call with the camera payload (Plücker pyramid,
-    F, per-level lines and tile maps) stacked with the batch. The JAX side
-    builds its own payload from the same poses."""
-    from camc2v_tpu_torch.models.camera_base import CamI2V
-
-    jm = plain_tiny("cami2v")
-    tm = CamI2V(port_config(jm.config), dtype=torch.float32)
-    params = seeded_params_for(tm, seed=1)
-    jb, tb = batches(n_ctx=0)
-    rng = np.random.default_rng(6)
-    x, c_concat = (rng.standard_normal((2, 4, 4, 4, 4)).astype(np.float32) for _ in range(2))
-    ctx, uctx = (rng.standard_normal((2, 77 + 64, 16)).astype(np.float32) for _ in range(2))
-    t, idx = np.array([999, 999], np.int32), np.zeros(2, np.int32)
-    kw = dict(guidance_scale=7.5, guidance_rescale=0.7)
-
-    def jax_step(p, batch, x, c_concat, ctx, uctx, t, idx):
-        cond = {"c_concat": c_concat, "c_crossattn": ctx, "camera": jm.camera_condition(p, batch, idx, 1.0)}
-        return jm.build_guided_fn(p, cond, dict(cond, c_crossattn=uctx), jm.get_fs(batch), **kw)(x, t)
-
-    ref = np.asarray(jit_o0(jax_step)(params, jb, *(jnp.asarray(a) for a in (x, c_concat, ctx, uctx, t, idx))))
-    with torch.no_grad():
-        camera = tm.camera_condition(tb, torch.from_numpy(idx).long(), perturb_noise=perturb_draws(2, 4))
-        assert set(camera["epi_prep"]) == {8, 16} and len(camera["plucker"]) == 2
-        cond = {"c_concat": torch.from_numpy(c_concat), "c_crossattn": torch.from_numpy(ctx), "camera": camera}
-        calls = []
-        real = tm.apply_model
-        tm.apply_model = lambda x_, t_, c_, fs_: calls.append(x_.shape[0]) or real(x_, t_, c_, fs_)
-        try:
-            fn = tm.build_guided_fn(cond, dict(cond, c_crossattn=torch.from_numpy(uctx)), tm.get_fs(tb), **kw)
-            got = fn(torch.from_numpy(x), torch.from_numpy(t), 999)
-        finally:
-            del tm.apply_model
-    assert calls == [4]  # one batch-2B call
-    assert_close(got.numpy(), ref)

@@ -15,8 +15,9 @@ schedulers, `cfg_interval` inside and outside, fused CFG off and on;
 `build_uncond` by `uncond_type`; `prepare_batch` at another conditioning
 frame with the translations scaled and without the camera payload;
 `p_losses` for the `v` and `x0` targets with dynamic rescale,
-`perframe_ae` and `interp_mode`; and a 3-step CamContextI2V `sample` with
-camera CFG, the paste and a conditioning frame other than 0. The guided
+`perframe_ae` and `interp_mode` (a 3-step CamContextI2V `sample` with
+camera CFG, the paste and a conditioning frame other than 0 is in
+`test_torch_camera_sampling.py`). The guided
 closure and the losses run with `apply_model` replaced by one closed form
 on both sides, so they need no UNet compile. Each JAX program compiles once
 (`jit_o0`) and takes what the cases change as inputs. Tolerance: 1e-4 of
@@ -418,86 +419,6 @@ def cleared_self_pair():
         yield
     finally:
         JG.conditional_epipolar_mask, TG.conditional_epipolar_mask = saved
-
-
-@pytest.fixture(scope="module")
-def jax_camera_sample(camcontext):
-    """The JAX CamContextI2V `sample` of the 3-step camera-CFG recipe
-    (cosine scheduler, the paste, fused CFG, latents returned with cond),
-    compiled once with the DDIM tables, the conditioning frames and the
-    translation scale as inputs; run at (frame 1, scale 1) and (frame 2,
-    scale 0.5)."""
-    import os
-
-    import camc2v_tpu.models.dynamicrafter as jdc
-    from camc2v_tpu.core.schedules import DDIMSchedule
-
-    jm, params, _ = camcontext
-    ddim = DDIMSchedule.create(jm.schedule, 3, "uniform_trailing", 1.0)
-
-    def run(params, batch, key, ddim, cfi, tsf):
-        class Given:
-            @staticmethod
-            def create(*_a, **_k):
-                return ddim
-
-        real, jdc.DDIMSchedule = jdc.DDIMSchedule, Given
-        try:
-            out, cond = jm.sample(params, batch, key, cond_frame_index=cfi, trace_scale_factor=tsf, **CAMERA_KW)
-        finally:
-            jdc.DDIMSchedule = real
-        cam = cond["camera"]
-        return out, cond["c_concat"], cond["origin_z0"], cond["c_crossattn"], cam["F"], cam["plucker"]
-
-    jb, _ = batches(n_ctx=2)
-    saved = os.environ.get("CAMC2V_FUSED_CFG")
-    os.environ["CAMC2V_FUSED_CFG"] = "1"
-    try:
-        fn = jit_o0(run)
-        with cleared_self_pair():
-            return {cfi: [np.asarray(a) for a in jax.tree_util.tree_leaves(
-                fn(params, jb, jax.random.key(12), ddim, jnp.full((2,), cfi, jnp.int32), jnp.float32(tsf)))]
-                for cfi, tsf in ((1, 1.0), (2, 0.5))}
-    finally:
-        if saved is None:
-            os.environ.pop("CAMC2V_FUSED_CFG")
-        else:
-            os.environ["CAMC2V_FUSED_CFG"] = saved
-
-
-CAMERA_KW = dict(ddim_steps=3, guidance_scale=7.5, guidance_rescale=0.7, timestep_spacing="uniform_trailing",
-                 camera_cfg=1.5, camera_cfg_scheduler="cosine", paste_cond_frame=True, decode=False, return_cond=True)
-
-
-@pytest.mark.parametrize("cfi,tsf", [(1, 1.0), (2, 0.5)])
-def test_camera_cfg_sample_matches_jax(camcontext, jax_camera_sample, monkeypatch, cfi, tsf):
-    """CamContextI2V `sample` end to end through its UNet: 3 DDIM steps, CFG
-    7.5 with rescale 0.7 and camera CFG 1.5 (cosine), fused CFG on (so the
-    camera-free pass runs on the padded cond), the conditioning frame pasted
-    (every frame VAE-encoded), at conditioning frame 1 and at frame 2 with
-    the translations scaled by 0.5: the latents, and `prepare_batch`'s
-    c_concat, origin_z0, context and camera payload (F, the Plücker
-    pyramid). The pasted frame equals origin_z0 bit for bit. The adaptor's
-    degenerate self-pair block is cleared on both sides
-    (`cleared_self_pair`)."""
-    _, _, tm = camcontext
-    monkeypatch.setenv("CAMC2V_FUSED_CFG", "1")
-    _, tb = batches(n_ctx=2)
-    key = jax.random.key(12)
-    pkey, skey = jax.random.split(key)
-    x_t = T_(jax.random.normal(pkey, (2, 4, 4, 4, 4), jnp.float32))
-    draws = jax_draws(skey, 3, ("noise", None, None), dict(noise=(2, 4, 4, 4, 4)))
-    with cleared_self_pair():
-        out, cond = tm.sample(tb, x_T=x_t, step_noise=draws, perturb_noise=perturb_draws(2, 4),
-                              cond_frame_index=torch.full((2,), cfi), trace_scale_factor=tsf, **CAMERA_KW)
-    cam = cond["camera"]
-    got = [out, cond["c_concat"], cond["origin_z0"], cond["c_crossattn"], cam["F"], *cam["plucker"]]
-    ref = jax_camera_sample[cfi]
-    assert len(got) == len(ref)
-    for g, r in zip(got, ref):
-        assert_rel(g.numpy(), r, 1e-4)
-    assert torch.equal(out[:, cfi], cond["origin_z0"][:, cfi])
-    assert torch.equal(cond["c_cond_frame_index"], torch.full((2,), cfi))
 
 
 def test_prepare_batch_without_the_camera_matches_jax(camcontext):

@@ -8,7 +8,8 @@ Functions run for CPU tensors, so the gradients of the port's
 backward kernels (`_flash_bwd_impl`, `_epipolar_flash_bwd_impl`) in
 interpret mode on the CPU, with their Pallas forwards and logsumexp. The
 other seams' Functions (K1, K3, K4: the vjp of the plain twin recomputed)
-are held against `jax.grad` of the JAX seams. Inputs come from numpy with a
+are held against `jax.grad` of the JAX seams (K3's and K4's in
+`test_torch_train_grads.py` and `test_torch_unet_training.py`). Inputs come from numpy with a
 seed; the K6/K7 geometry is the JAX tests' small one (8x8 frames at ds 8,
 64-query and 64-key tiles).
 
@@ -29,9 +30,7 @@ import torch
 
 from camc2v_tpu.ops import epipolar_flash as jef
 from camc2v_tpu.ops import flash_attention as jfa
-from camc2v_tpu.ops import geglu_ff as jff
 from camc2v_tpu.ops import groupnorm as jgn
-from camc2v_tpu.ops import temporal_attention as jta
 
 from camc2v_tpu_torch.ops import epipolar_flash as tef
 from camc2v_tpu_torch.ops import flash_attention as tfa
@@ -191,53 +190,6 @@ def test_groupnorm_seam_gradient_matches_jax():
     _close(out, ref_out, 1e-5)
     for name, gg, r in zip(("x", "scale", "bias"), got, ref):
         _close(gg, r, 1e-5, name)
-
-
-@pytest.mark.parametrize("ln", [True, False])
-def test_temporal_mha_seam_gradient_matches_jax(ln):
-    rng = np.random.default_rng(2)
-    n, t, c, heads = 16, 16, 32, 2
-    x = rng.normal(size=(n, t, c)).astype(np.float32)
-    ws = [rng.normal(0, c ** -0.5, (c, c)).astype(np.float32) for _ in range(4)]  # JAX (in, out)
-    bo = rng.normal(0, 0.1, c).astype(np.float32)
-    ls, lb = rng.normal(1.0, 0.2, c).astype(np.float32), rng.normal(0.0, 0.2, c).astype(np.float32)
-    g = rng.standard_normal((n, t, c)).astype(np.float32)
-    args = [x, *ws, bo] + ([ls, lb] if ln else [])
-
-    def jax_fn(x_, wq, wk, wv, wo, bo_, *lnp):
-        kw = dict(ln_scale=lnp[0], ln_bias=lnp[1], residual=True) if ln else {}
-        return jta.fused_temporal_mha(x_, wq, wk, wv, wo, bo_, heads=heads, **kw)
-
-    def port_fn(x_, wq, wk, wv, wo, bo_, *lnp):
-        kw = dict(ln_scale=lnp[0], ln_bias=lnp[1], residual=True) if ln else {}
-        return tta.fused_temporal_mha(x_, wq.t(), wk.t(), wv.t(), wo.t(), bo_, heads=heads, **kw)
-
-    ref_out, ref = _jax_vjp(jax_fn, args, g)
-    out, got = _port_vjp(port_fn, args, g)
-    assert _made_by(out, "Recompute")
-    _close(out, ref_out, 4 * ULP)
-    for i, (gg, r) in enumerate(zip(got, ref)):
-        _close(gg, r, 4 * ULP, f"input {i}")
-
-
-def test_geglu_ff_seam_gradient_matches_jax():
-    rng = np.random.default_rng(3)
-    rows, c, inner = 128, 32, 128
-    x = rng.normal(size=(2, rows // 2, c)).astype(np.float32)
-    ls, lb = rng.normal(1.0, 0.2, c).astype(np.float32), rng.normal(0.0, 0.2, c).astype(np.float32)
-    wp = rng.normal(0, c ** -0.5, (c, 2 * inner)).astype(np.float32)  # JAX (in, out)
-    bp = rng.normal(0, 0.1, 2 * inner).astype(np.float32)
-    wf = rng.normal(0, inner ** -0.5, (inner, c)).astype(np.float32)
-    bf = rng.normal(0, 0.1, c).astype(np.float32)
-    g = rng.standard_normal(x.shape).astype(np.float32)
-    args = (x, ls, lb, wp, bp, wf, bf)
-    ref_out, ref = _jax_vjp(jff.fused_ln_geglu_ff, args, g)
-    out, got = _port_vjp(lambda x_, ls_, lb_, wp_, bp_, wf_, bf_: tff.fused_ln_geglu_ff(
-        x_, ls_, lb_, wp_.t(), bp_, wf_.t(), bf_), args, g)
-    assert _made_by(out, "Recompute")
-    _close(out, ref_out, 4 * ULP)
-    for i, (gg, r) in enumerate(zip(got, ref)):
-        _close(gg, r, 4 * ULP, f"input {i}")
 
 
 # ----------------------------------------------------------------- rules

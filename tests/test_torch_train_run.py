@@ -11,10 +11,7 @@ validation and the entry point.
     2e-5 of each output's max |value|; the padded keys' gradients exactly 0
     and their tiles off in the kernels' skip map;
   * the padded loss and trainable gradients against the JAX package's padded
-    `prepare_batch` + `apply_model` under `jax.value_and_grad`, within 1e-4 of
-    each output's max |value| (test_torch_train_loss.py's tolerance), with
-    every key-masked cross-attention going through `_Flash` (K2 + K5 on the
-    card) with its gradient;
+    path: `test_torch_train_grads.py`;
   * checkpoints: save / restore bit-equal, mid accumulation window included;
     2 micro-steps + save + restore + 2 equal 4 straight within 1e-6 (f32);
   * validation: `Trainer.validate` equals the loss of `apply_model(...,
@@ -38,15 +35,14 @@ import torch
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
 from test_torch_camera_generate import batches, perturb_draws, plain_tiny, seeded_params_for  # noqa: E402
-from test_torch_port_modules import flat, port_config  # noqa: E402
+from test_torch_port_modules import port_config  # noqa: E402
 from test_torch_train_data import write_tree  # noqa: E402
-from test_torch_train_step import PATTERNS, _dropout_model, one_torch_thread  # noqa: E402,F401
+from test_torch_train_step import _dropout_model, one_torch_thread  # noqa: E402,F401
 
 from camc2v_tpu_torch import presets  # noqa: E402
 from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V  # noqa: E402
 from camc2v_tpu_torch.parallel import trainer as TR  # noqa: E402
 from camc2v_tpu_torch.utils import checkpoint as CK  # noqa: E402
-from camc2v_tpu_torch.utils.weights import _to_torch_layout, jax_to_torch_name  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 NMAX = 4
@@ -171,67 +167,6 @@ def test_padded_epipolar_kernel_path_matches_unpadded_and_jax():
         _close(g[:, keep] if name != "q" else g, gu.numpy(), 2e-5, f"d{name} vs unpadded")
         if name != "q":
             assert not g[:, kept * hw:t * hw].any(), f"d{name} of the padded keys"
-
-
-def test_padded_loss_and_gradients_match_jax(camcontext, monkeypatch):
-    """n = 2 context frames in 4 slots: the loss and the trainable gradients
-    against the JAX package's padded path, on the same weights and inputs.
-    The JAX program is compiled at XLA's lowest backend optimisation level,
-    which cuts its compile time and keeps its f32 arithmetic."""
-    from camc2v_tpu.core.schedules import q_sample
-    from camc2v_tpu.parallel.trainer import param_labels
-
-    from camc2v_tpu_torch.ops import flash_attention as fa
-
-    jm, params, tm = camcontext
-    jb, tb = batches(n_ctx=2)
-    jb, tb = pad(jb), pad(tb)
-    t = np.array([37, 911], np.int32)
-    noise = np.random.default_rng(7).standard_normal((2, 4, 4, 4, 4)).astype(np.float32)
-
-    def loss_fn(p):
-        z, cond = jm.prepare_batch(p, jb, None, need_full_z=True)
-        x_noisy = q_sample(jm.schedule, z, jnp.asarray(t), jnp.asarray(noise))
-        out = jm.apply_model(p, x_noisy, jnp.asarray(t), cond, jm.get_fs(jb), deterministic=True)
-        return jm.get_loss(out, jnp.asarray(noise)).mean(axis=(1, 2, 3, 4)).mean()
-
-    labels = param_labels(params, PATTERNS)
-    split = lambda keep: jax.tree_util.tree_map(lambda lab, p: p if lab == keep else None, labels, params)  # noqa
-    merge = lambda a, b: jax.tree_util.tree_map(lambda x, y: y if x is None else x, a, b,  # noqa: E731
-                                                is_leaf=lambda x: x is None)
-    args = (split("train"), split("freeze"))
-    program = jax.jit(jax.value_and_grad(lambda tr, fr: loss_fn(merge(tr, fr)))).lower(*args).compile(
-        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
-    jloss, jgrads = program(*args)
-    jgrads = {jax_to_torch_name(k): _to_torch_layout(k, v) for k, v in flat(jgrads).items() if v.dtype != object}
-
-    masked_with_grad = []
-    real_apply = fa._Flash.apply
-
-    def recorded(q, k, v, mask, scale, kernel):
-        masked_with_grad.append(mask is not None and q.requires_grad)
-        return real_apply(q, k, v, mask, scale, kernel)
-
-    monkeypatch.setattr(fa._Flash, "apply", recorded)
-    names = [n for n, _ in tm.named_parameters() if n in {jax_to_torch_name(k) for k in jgrads}]
-    named = dict(tm.named_parameters())
-    for n, p in named.items():
-        p.requires_grad_(n in names)
-    try:
-        z, cond = tm.prepare_batch(tb, None, need_full_z=True, perturb_noise=perturb_draws(2, 4))
-        loss, _ = tm.p_losses(z, cond, torch.from_numpy(t).long(), torch.from_numpy(noise), tm.get_fs(tb),
-                              deterministic=True)
-        grads = torch.autograd.grad(loss, [named[n] for n in names])
-    finally:
-        for p in named.values():
-            p.requires_grad_(True)
-    assert any(masked_with_grad), "no key-masked cross-attention with a gradient reached _Flash"
-    assert set(names) == set(jgrads) and {n.split(".")[0] for n in names} == {"adaptor", "image_proj", "zero_conv"}
-    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4)
-    for name, g in zip(names, grads):
-        ref = jgrads[name]
-        assert float(np.abs(ref).max()) > 0, name
-        np.testing.assert_allclose(g.numpy(), ref, rtol=0, atol=1e-4 * float(np.abs(ref).max()), err_msg=name)
 
 
 # ------------------------------------------------------ checkpoints, validation

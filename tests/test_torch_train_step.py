@@ -13,8 +13,8 @@ Port-only checks: remat on and off give the same gradients with dropout on;
 dropout is active only with `deterministic=False`; the gradient reaches the
 zero conv, the Resampler and the adaptor through every kernel seam (K1-K4,
 K6, with their autograd Functions) when the seams take their kernel routes
-(twins inside, on the CPU); `Trainer.fit` with a flag schedule; and the
-overfit-one-batch learning test.
+(twins inside, on the CPU); `Trainer.fit` with a flag schedule. The
+overfit-one-batch learning test is in test_torch_unet_training.py.
 
 Tolerances: optimizer and EMA 1e-6 relative (float rounding of the same
 update formula in another order); remat on against off 1e-6 relative (the
@@ -271,23 +271,3 @@ def test_trainer_fit_runs_phases_and_updates_only_trainables(monkeypatch):
         Trainer(tm, cfg, [tb], mesh=object())
 
 
-def test_overfit_one_batch():
-    """The trainer's optimizer on one fixed batch (fixed conditioning,
-    timesteps and noise), dropout on, the flagship's trainable subset plus
-    the UNet: the loss falls by at least 10x within 20 steps."""
-    tm = _dropout_model(seed=4)
-    _, tb = batches(n_ctx=2, b=1)
-    cfg = TR.TrainConfig(learning_rate=2e-3, weight_decay=0.0, grad_clip=1.0,
-                         trainable_patterns=PATTERNS + (r"^unet/",))
-    state = TR.init_train_state(cfg, tm)
-    sched = TR.make_lr_schedule(cfg)
-    t = torch.tensor([400])
-    losses = []
-    for step in range(20):
-        torch.manual_seed(step)
-        z, cond = tm.prepare_batch(tb, None, need_full_z=True)
-        noise = torch.from_numpy(np.random.default_rng(0).standard_normal(z.shape).astype(np.float32))
-        loss, _ = tm.p_losses(z, cond, t, noise, tm.get_fs(tb))
-        TR.apply_gradients(state, cfg, torch.autograd.grad(loss, state.params), sched)
-        losses.append(loss.item())
-    assert losses[-1] < losses[0] / 10, losses[::5]
