@@ -1,10 +1,11 @@
 """Camera geometry as float32 functions (`camc2v_tpu/camera/geometry.py`).
 
-Plücker rays, relative poses, fundamental matrices and the plain epipolar
-mask band. Everything is computed in f32 whatever the input dtype; the small
-matrix products run as f32 matmuls, which stay full f32 on the card with
-TF32 off (`camc2v_tpu_torch.configure_numerics`). Poses are 4x4 row-major
-matrices, intrinsics 3x3 in pixels of the (H, W) video.
+Plücker rays, relative poses, fundamental matrices and the epipolar masks
+with the config's variants. Everything is computed in f32 whatever the
+input dtype; the small matrix products run as f32 matmuls, which stay full
+f32 on the card with TF32 off (`camc2v_tpu_torch.configure_numerics`).
+Poses are 4x4 row-major matrices, intrinsics 3x3 in pixels of the (H, W)
+video.
 
 `add_small_perturbation` takes its standard-normal draws as an argument: the
 JAX package draws them from a fixed JAX key, whose bits torch cannot
@@ -88,22 +89,51 @@ def add_small_perturbation(t: torch.Tensor, noise: torch.Tensor, epsilon: float 
     return torch.where(zero, noise.to(t.dtype) * epsilon, t)
 
 
-def _require_plain(config: EpipolarConfig) -> None:
-    if config.apply_epipolar_soft_mask or config.epipolar_hybrid_attention or \
-            config.epipolar_hybrid_attention_v2 or config.only_self_pixel_on_current_frame or \
-            config.current_frame_as_register_token:
-        raise NotImplementedError("epipolar_mask: only the plain distance band is ported")
+def apply_mask_variants(mask: torch.Tensor, T: int, hw: int, config: EpipolarConfig) -> torch.Tensor:
+    """The config's variants on a (B, T1*hw, T2*hw) plain band, in the JAX
+    order (`camc2v_tpu/camera/geometry.py:184-206`):
+      * `epipolar_hybrid_attention`: a (query pixel, key frame) row with no
+        set bit attends to the whole key frame;
+      * `epipolar_hybrid_attention_v2`: a query pixel with no set bit in any
+        key frame attends to every key;
+      * `only_self_pixel_on_current_frame`: in the query's own frame only
+        its own pixel;
+      * `current_frame_as_register_token`: the query's whole own frame.
+    The same-frame variants take frame pairs on the diagonal of a T x T
+    grid, so they need T1 == T2 == T: the JAX broadcast raises otherwise,
+    and so does this function (CamContextI2V's adaptor mask, T target frames
+    over 1 + N key frames, is such a case). Soft masks raise, as in JAX: no
+    shipped config uses them."""
+    if config.apply_epipolar_soft_mask:
+        raise NotImplementedError("soft epipolar masks are not used by any shipped config")
+    b, lq, lk = mask.shape
+    m = mask.reshape(b, lq // hw, hw, lk // hw, hw)  # (B, T1, q, T2, k)
+    same_frame_variant = config.only_self_pixel_on_current_frame or config.current_frame_as_register_token
+    if same_frame_variant and not m.shape[1] == m.shape[3] == T:
+        raise ValueError(f"epipolar mask: the same-frame variants need T x T frame pairs, got {m.shape[1]} query "
+                         f"and {m.shape[3]} key frames for T = {T}")
+    if config.epipolar_hybrid_attention:
+        m = m | ~m.any(dim=-1, keepdim=True)
+    if config.epipolar_hybrid_attention_v2:
+        m = m | ~m.any(dim=(3, 4), keepdim=True)
+    if same_frame_variant:
+        same_frame = torch.eye(T, dtype=torch.bool, device=mask.device)[None, :, None, :, None]
+        if config.only_self_pixel_on_current_frame:
+            same_pixel = torch.eye(hw, dtype=torch.bool, device=mask.device)[None, None, :, None, :]
+            m = (m & ~same_frame) | (same_frame & same_pixel)
+        if config.current_frame_as_register_token:
+            m = m | same_frame
+    return m.reshape(b, lq, lk)
 
 
 def epipolar_mask(F: torch.Tensor, T: int, H: int, W: int, downsample: int,
                   config: EpipolarConfig = EpipolarConfig()) -> torch.Tensor:
     """(B, T1*H*W, T2*H*W) bool: key pixel k lies within downsample*sqrt(2)/2
-    of query pixel q's epipolar line. Plain band only; built from the same
-    lines and operation order as the kernel path
-    (`ops.epipolar_flash.materialize_mask`). T (the JAX signature's frame
-    count) is F's T2."""
-    _require_plain(config)
-    return materialize_mask(epipolar_lines(F, H, W, downsample), F.shape[2], H, W, downsample)
+    of query pixel q's epipolar line, then the config's variants
+    (`apply_mask_variants`). The band is built from the same lines and
+    operation order as the kernel path (`ops.epipolar_flash.materialize_mask`)."""
+    mask = materialize_mask(epipolar_lines(F, H, W, downsample), F.shape[2], H, W, downsample)
+    return apply_mask_variants(mask, T, H * W, config)
 
 
 def build_epipolar_masks(F: torch.Tensor, T: int, latent_hw: tuple[int, int],

@@ -7,9 +7,7 @@ Same field names and defaults as the JAX package's dataclasses
 `nn/epipolar.py::EpipolarConfig`, `camera/pose_encoder.py::PoseEncoderConfig`,
 `models/camera_base.py::CameraControlConfig`/`MotionCtrlConfig`/`CamI2VConfig`,
 `models/camcontexti2v.py::AdaptorConfig`/`CamContextI2VConfig`), defined
-here again because the port may not import the JAX package. Of the JAX remat
-policies only `remat_policy=None` (save nothing, recompute every block) is
-ported; the UNet raises on the others.
+here again because the port may not import the JAX package.
 """
 
 from __future__ import annotations
@@ -20,8 +18,8 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class EpipolarConfig:
-    """Epipolar attention (hashable). Only the plain `dist < thresh` band is
-    ported; the other mask variants raise where a module is built."""
+    """Epipolar attention (hashable). Soft masks raise where the masks are
+    built, as in JAX; every other field is ported."""
 
     origin_h: int = 256
     origin_w: int = 256
@@ -78,7 +76,8 @@ class UNetConfig:
     camera_mode: str = "plucker_epipolar"
     pose_dim: int = 12
     # training only: rematerialise each UNet block in the backward
-    # (torch.utils.checkpoint), saving nothing inside it
+    # (torch.utils.checkpoint), saving what the policy names inside it
+    # (none | dots | dots_batch | pallas | dots_pallas, `nn/unet3d.py`)
     remat: bool = True
     remat_policy: Optional[str] = None
 

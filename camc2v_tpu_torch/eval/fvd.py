@@ -237,13 +237,15 @@ def write_i3d_weights(path: str, variables: dict) -> None:
 
 class FVDScorer:
     """End-to-end FVD over [-1,1] (N, T, H, W, 3) video arrays, the network
-    on `device`."""
+    on `device` (the card by default; without CUDA that raises unless the
+    caller passes device="cpu")."""
 
-    def __init__(self, weights_path: Optional[str] = None, variant: str = "videogpt", device="cpu"):
+    def __init__(self, weights_path: Optional[str] = None, variant: str = "videogpt", device="cuda"):
+        from camc2v_tpu_torch.eval.video_metrics import metric_device
         from camc2v_tpu_torch.utils.weights import load_i3d_variables
 
         self.variant = variant
-        self.device = torch.device(device)
+        self.device = metric_device(device, "FVDScorer")
         self.model = None
         weights_path = weights_path or os.environ.get("I3D_WEIGHTS_PATH")
         if weights_path and os.path.exists(weights_path):

@@ -2,7 +2,9 @@
 torchmetrics and its weights are at hand), `camc2v_tpu/eval/video_metrics.py`.
 
 The JAX package computes these with numpy/scipy on the host. Here the frames
-go to `device` as uint8 and every metric is computed in float64 there, so
+go to `device` (the card by default; without CUDA that raises unless the
+caller passes device="cpu", `metric_device`) as uint8 and every metric is
+computed in float64 there, so
 the numbers are the host's to rounding (~1e-12). SSIM is the same Gaussian
 11x11 window (sigma 1.5, outer product, "valid"), K1 0.01, K2 0.03 at
 data_range 255: the (T*C) planes go through one `F.conv2d` per statistic,
@@ -24,20 +26,29 @@ import torch
 import torch.nn.functional as F
 
 
+def metric_device(device, what: str = "evaluation") -> torch.device:
+    """`device` as a torch.device; a CUDA device without CUDA raises (the
+    port's entry points run on the card unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA is not available; pass device='cpu' to compute on the CPU")
+    return device
+
+
 def _f64(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).to(torch.float64)
+    return torch.as_tensor(x, device=metric_device(device)).to(torch.float64)
 
 
-def mse(a, b, device="cpu") -> float:
+def mse(a, b, device="cuda") -> float:
     """Mean squared error over uint8-range frames."""
     return float(((_f64(a, device) - _f64(b, device)) ** 2).mean())
 
 
-def rmse(a, b, device="cpu") -> float:
+def rmse(a, b, device="cuda") -> float:
     return float(np.sqrt(mse(a, b, device)))
 
 
-def psnr(a, b, data_range: float = 255.0, device="cpu") -> float:
+def psnr(a, b, data_range: float = 255.0, device="cuda") -> float:
     return _psnr(mse(a, b, device), data_range)
 
 
@@ -68,7 +79,7 @@ def _ssim_frames(a: torch.Tensor, b: torch.Tensor, data_range: float) -> torch.T
     return s.mean(dim=(1, 2, 3)).reshape(n, c).mean(dim=1)
 
 
-def ssim(a, b, data_range: float = 255.0, device="cpu") -> float:
+def ssim(a, b, data_range: float = 255.0, device="cuda") -> float:
     """SSIM over (H, W, C) or (N, H, W, C) frames (Gaussian 11x11, K1/K2 std)."""
     a, b = _f64(a, device), _f64(b, device)
     if a.ndim == 3:
@@ -93,9 +104,10 @@ def lpips_unavailable(net: str = "squeeze") -> Optional[str]:
     return None
 
 
-def lpips(a, b, net: str = "squeeze", device="cpu") -> float:
+def lpips(a, b, net: str = "squeeze", device="cuda") -> float:
     """LPIPS (torchmetrics) of uint8 (N, H, W, 3) frames; call only where
     `lpips_unavailable(net)` is None."""
+    device = metric_device(device, "lpips")
     from torchmetrics.image.lpip import LearnedPerceptualImagePatchSimilarity
 
     m = LearnedPerceptualImagePatchSimilarity(net_type=net).to(device)
@@ -105,7 +117,7 @@ def lpips(a, b, net: str = "squeeze", device="cpu") -> float:
         return float(m(ta, tb))
 
 
-def video_pair_metrics(gt, gen, with_lpips: bool = True, device="cpu") -> dict:
+def video_pair_metrics(gt, gen, with_lpips: bool = True, device="cuda") -> dict:
     """Per-video metric dict over uint8 (T, H, W, 3) frame stacks.
 
     Also returns per-timestep MSE (reference computes per-timestep breakdowns,

@@ -22,7 +22,9 @@ with `generated` and `ground_truth` videos, `.mp4` or `.npz`, and
     `--trials` reconstructions per video; raises when the binaries are not
     on PATH.
 The device work runs on the card by default; without CUDA it raises unless
-`--device cpu` is given.
+`--device cpu` is given. The library functions (`run_extended`, `run_fvd`,
+`eval/video_metrics.py`, `eval/fvd.py::FVDScorer`) follow the same rule with
+their `device` argument.
 """
 
 from __future__ import annotations
@@ -74,9 +76,10 @@ def load_video(path: str) -> np.ndarray:
     return frames
 
 
-def run_extended(dirs: list[str], with_lpips: bool = True, device="cpu") -> dict:
-    from camc2v_tpu_torch.eval.video_metrics import lpips_unavailable, video_pair_metrics
+def run_extended(dirs: list[str], with_lpips: bool = True, device="cuda") -> dict:
+    from camc2v_tpu_torch.eval.video_metrics import lpips_unavailable, metric_device, video_pair_metrics
 
+    device = metric_device(device, "run_extended")
     if with_lpips:
         reason = lpips_unavailable()
         if reason is not None:
@@ -101,10 +104,11 @@ def fvd_videos(dirs: list[str]) -> tuple[np.ndarray, np.ndarray]:
     return np.stack([v[:t] for v in real]), np.stack([v[:t] for v in gen])
 
 
-def run_fvd(dirs: list[str], variant: str, weights: Optional[str], device="cpu") -> float:
+def run_fvd(dirs: list[str], variant: str, weights: Optional[str], device="cuda") -> float:
     from camc2v_tpu_torch.eval.fvd import FVDScorer
+    from camc2v_tpu_torch.eval.video_metrics import metric_device
 
-    scorer = FVDScorer(weights, variant, device=device)
+    scorer = FVDScorer(weights, variant, device=metric_device(device, "run_fvd"))
     return scorer(*fvd_videos(dirs))
 
 

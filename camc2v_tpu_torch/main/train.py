@@ -1,11 +1,13 @@
 """Training entry point of the port (`01_train.py` without the multi-host
-launch and the machine registry).
+launch).
 
     python -m camc2v_tpu_torch.main.train --config configs/models/camcontexti2v_256.yaml \\
         [--name NAME] [--logdir ./results] [--continue] [--max_steps N] [--bpe_path P] \\
-        [--device cuda|cpu] [--seed S] [--debug] [key.path=value ...]
+        [--machine NAME] [--device cuda|cpu] [--seed S] [--debug] [key.path=value ...]
 
-It reads the yaml and the dotlist overrides (`config_yaml`), builds the model
+It reads the yaml and the dotlist overrides (`config_yaml`), then substitutes
+the `--machine` registry entry's data roots (`utils/meta.py::
+apply_machine_config`, as `01_train.py` does), builds the model
 with seeded weights on `--device` (the card by default; without CUDA it
 raises unless `--device cpu` is given), builds the RealEstate10K loaders from
 the `data` section (1-4 context frames padded to 4 in the flagship yaml) and
@@ -44,6 +46,9 @@ def parse_args(argv: Optional[list] = None):
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--bpe_path", default=None, help="CLIP BPE merges file")
     ap.add_argument("--pretrained", default=None, help="reference .pt checkpoint to import")
+    ap.add_argument("--machine", default=None,
+                    help="machine-registry entry (camc2v_tpu_torch/utils/meta.py): substitutes "
+                         "that machine's data roots into the config")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("overrides", nargs="*", help="dotlist config overrides a.b.c=value")
     return ap.parse_intermixed_args(argv)
@@ -73,8 +78,9 @@ def main(argv: Optional[list] = None, callbacks: Optional[list] = None):
     from camc2v_tpu_torch.main.loggers import build_sinks
     from camc2v_tpu_torch.parallel import trainer as TR
     from camc2v_tpu_torch.utils import checkpoint as CK
+    from camc2v_tpu_torch.utils.meta import apply_machine_config
 
-    cfg = apply_dotlist(load_yaml(args.config), args.overrides)
+    cfg = apply_machine_config(apply_dotlist(load_yaml(args.config), args.overrides), args.machine)
     name = args.name or os.path.splitext(os.path.basename(args.config))[0]
     dirs = init_workspace(name, args.logdir, cfg)
     log = setup_logger(dirs["workdir"])

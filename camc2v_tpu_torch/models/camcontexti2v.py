@@ -10,15 +10,31 @@ On top of CamI2V:
     3x3x3 conv residual onto the repeated cond-frame latent gives c_concat.
 
 The adaptor's mask is computed in K6 from the queries' epipolar lines when
-its shape allows (one query per latent pixel, hw >= 256: the flagship), else
-materialised densely (the attention seam sends it to K2 on the card).
+the config is the plain band and its shape allows (one query per latent
+pixel, hw >= 256: the flagship), else materialised densely with the
+config's variants (`camera/geometry.py::conditional_epipolar_mask`; the
+attention seam sends it to K2 on the card).
 
 Generation (only the cond and context frames VAE-encoded) and training
 (`need_full_z`: all T + N frames encoded, CFG dropout, the adaptor's
 `adaptor_use_mask` phase flag) are ported, at any conditioning frame
 (`cond_frame_index`, `rand_cond_frame`). In training the
-adaptor runs on K6 and its gradient on K7. The 'max'/'avg' strategies, the
-Plücker adaptor input and cross-normalisation raise.
+adaptor runs on K6 and its gradient on K7.
+
+The other strategies and options (JAX `camc2v_tpu/models/camcontexti2v.py`):
+  * 'max' / 'avg': no adaptor; the conditioning and context frames' image
+    tokens are pooled over the frames (max, or mean) into one frame's
+    tokens, padded frames left out by the validity flags. The pooled tokens
+    are all valid, so no `c_crossattn_mask` is written (a recorded
+    divergence: the JAX package writes one from the pooled length, which
+    does not match its c_crossattn);
+  * 'token_concat': the semantic branch without the latent one;
+  * `use_cross_normalization`: the adaptor's output re-normalised to the
+    conditioning latent's mean and (unbiased) std, per channel over (T, h,
+    w) ('spatio_temporal') or per sample over tokens and channels
+    ('token'), before the zero conv;
+  * 'pose_agent_enc' raises, as in JAX: the reference's strategy is a stub
+    that crashes on its first batch.
 
 Padded context batches (the data path pads 1-4 context frames to 4 and
 writes `cond_frames_valid`, `data/realestate10k.py::RealEstate10K.collate`)
@@ -42,10 +58,11 @@ from typing import Optional
 import torch
 
 from camc2v_tpu_torch.camera import geometry as G
-from camc2v_tpu_torch.camera.adaptors import MultiLatentEpipolarAdaptor
-from camc2v_tpu_torch.config import CamContextI2VConfig
+from camc2v_tpu_torch.camera.adaptors import MultiLatentEpipolarAdaptor, cross_normalization
+from camc2v_tpu_torch.config import CamContextI2VConfig, EpipolarConfig
 from camc2v_tpu_torch.models.camera_base import CamI2V
 from camc2v_tpu_torch.models.dynamicrafter import take_frame
+from camc2v_tpu_torch.nn.epipolar import plain_epipolar
 from camc2v_tpu_torch.nn.layers import Conv
 from camc2v_tpu_torch.ops import epipolar_flash as ef
 
@@ -56,10 +73,11 @@ class CamContextI2V(CamI2V):
     def __init__(self, config: CamContextI2VConfig, dtype=torch.bfloat16):
         super().__init__(config, dtype=dtype)
         strategy = config.multi_cond_strategy
-        if strategy not in _LATENT + ("token_concat",):
-            raise NotImplementedError(f"CamContextI2V: multi_cond_strategy '{strategy}' is not ported")
-        if config.use_cross_normalization:
-            raise NotImplementedError("CamContextI2V: cross-normalisation is not ported (off in the flagship)")
+        if strategy == "pose_agent_enc":
+            raise NotImplementedError("multi_cond_strategy='pose_agent_enc' is a non-functional stub in the "
+                                      "reference (crashes there on first use); not rebuilt")
+        if config.use_cross_normalization and config.cross_normalization_mode not in ("spatio_temporal", "token"):
+            raise ValueError(f"unknown cross_normalization_mode '{config.cross_normalization_mode}'")
         self.adaptor = None
         if strategy in _LATENT:
             a = config.adaptor
@@ -74,12 +92,13 @@ class CamContextI2V(CamI2V):
         self.zero_conv = Conv(4, 4, (3, 3, 3), dtype=dtype) if config.use_zero_conv_latent_input else None
 
     def _adaptor_kernel_ok(self, hw: int, masking: bool) -> bool:
-        """The adaptor's in-kernel mask applies (the JAX rule)."""
+        """The adaptor's in-kernel mask applies (the JAX rule: the plain band
+        at a layout K6 tiles)."""
         cfg: CamContextI2VConfig = self.config
         a = cfg.adaptor
         return (masking and cfg.multi_cond_strategy == "token_concat_latent_epipolar"
-                and a.num_queries == hw and hw >= 256 and (a.num_queries * a.video_length) % ef.BLOCK_Q == 0
-                and (hw % ef.BLOCK_K == 0 or hw % 256 == 0))
+                and plain_epipolar(cfg.epipolar or EpipolarConfig()) and a.num_queries == hw and hw >= 256
+                and (a.num_queries * a.video_length) % ef.BLOCK_Q == 0 and (hw % ef.BLOCK_K == 0 or hw % 256 == 0))
 
     def latent_condition(self, batch: dict, z_cond: torch.Tensor, z_add: torch.Tensor,
                          cond_frame_index: torch.Tensor, adaptor_use_mask: Optional[bool] = None,
@@ -109,7 +128,8 @@ class CamContextI2V(CamI2V):
             mask = None
             if cfg.multi_cond_strategy == "token_concat_latent_epipolar" and cfg.adaptor.use_mask:
                 H, W = batch["video"].shape[2:4]
-                mask = G.conditional_epipolar_mask(*args, H, W, downsample=8, config=cfg.epipolar)
+                mask = G.conditional_epipolar_mask(*args, H, W, downsample=8,
+                                                   config=cfg.epipolar or EpipolarConfig())
             use_mask = adaptor_use_mask
             if frame_valid is not None:
                 # validity columns: a padded frame's keys are never visible (a
@@ -120,10 +140,26 @@ class CamContextI2V(CamI2V):
                     b, lq, z_tokens.shape[1], dtype=torch.bool, device=z_tokens.device)
                 mask, use_mask = base & token_valid[:, None, :], True
             img_cat = self.adaptor(z_tokens, mask, use_mask=use_mask)
+        if cfg.use_cross_normalization and cfg.cross_normalization_mode == "spatio_temporal":
+            img_cat = cross_normalization(img_cat.reshape(b, t, hl, wl, -1), z_cond[:, None], axes=(-4, -3, -2))
+        elif cfg.use_cross_normalization:
+            img_cat = cross_normalization(img_cat[:, None], z_cond.reshape(b, 1, hw, -1), axes=(-2, -1))[:, 0]
         img_cat = img_cat.reshape(b, t, hl, wl, -1)
         if self.zero_conv is not None:
             img_cat = z_cond[:, None] + self.zero_conv(img_cat)
         return img_cat
+
+    def _pool_frames(self, img_emb: torch.Tensor, ctx_valid: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, 1 + N, L, D) image tokens -> (B, L, D): their max or mean over
+        the frames, a padded context frame (ctx_valid False) left out."""
+        if ctx_valid is None:
+            return img_emb.amax(dim=1) if self.config.multi_cond_strategy == "max" else img_emb.mean(dim=1)
+        b = img_emb.shape[0]
+        fv = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=ctx_valid.device), ctx_valid], dim=1)
+        fv = fv.to(img_emb.device)[:, :, None, None]
+        if self.config.multi_cond_strategy == "max":
+            return torch.where(fv, img_emb, -torch.inf).amax(dim=1)
+        return torch.where(fv, img_emb, 0.0).sum(dim=1) / fv.to(img_emb.dtype).sum(dim=1)
 
     def prepare_batch(self, batch: dict, generator: Optional[torch.Generator] = None, *,
                       random_uncond: bool = False, rand_cond_frame: Optional[bool] = None,
@@ -177,12 +213,17 @@ class CamContextI2V(CamI2V):
         else:
             img_emb = self.embed_images(imgs)
         l_tok = img_emb.shape[1]
-        img_emb = img_emb.reshape(b, (1 + n_ctx) * l_tok, -1)
+        img_emb = img_emb.reshape(b, 1 + n_ctx, l_tok, -1)
+        pooled = cfg.multi_cond_strategy in ("max", "avg") and n_ctx > 0
+        if pooled:
+            img_emb = self._pool_frames(img_emb, ctx_valid)
+        else:
+            img_emb = img_emb.reshape(b, (1 + n_ctx) * l_tok, -1)
         cond["c_concat"] = c_concat
         cond["c_cond_frame_index"] = idx
         cond["origin_z0"] = z if need_full_z else None
         cond["c_crossattn"] = torch.cat([prompt_emb, img_emb], dim=1)
-        if ctx_valid is not None and n_ctx:
+        if ctx_valid is not None and n_ctx and not pooled:
             # token validity of the UNet's image cross-attention: a padded frame's tokens hidden
             frame_valid = torch.cat([torch.ones(b, 1, dtype=torch.bool, device=video.device), ctx_valid], dim=1)
             cond["c_crossattn_mask"] = torch.cat([

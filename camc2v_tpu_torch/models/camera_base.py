@@ -13,7 +13,9 @@ CamI2V the Plücker pyramid (`pluker_projection`) and epipolar attention
 (`UNetConfig.use_camera`, `UNetConfig.epipolar`). `CamI2V.camera_condition`
 builds the payload once per request: the relative poses, the fundamental
 matrices of every frame pair, the epipolar lines and kernel tile maps of
-every level (`prepare_plain_epipolar`), and the Plücker pyramid. Each
+every level (`prepare_plain_epipolar`) or, for a config with a mask variant,
+every level's mask and its padded K2 form (`prepare_masked_epipolar`), and
+the Plücker pyramid. Each
 payload rides cond["camera"] through every denoise step.
 
 Batch keys on top of DynamiCrafter's:
@@ -32,7 +34,7 @@ from camc2v_tpu_torch.camera.pose_encoder import CameraPoseEncoder
 from camc2v_tpu_torch.config import CameraControlConfig, CamI2VConfig
 from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
 from camc2v_tpu_torch.nn.attention import BasicTransformerBlock
-from camc2v_tpu_torch.nn.epipolar import prepare_plain_epipolar, require_plain
+from camc2v_tpu_torch.nn.epipolar import plain_epipolar, prepare_masked_epipolar, prepare_plain_epipolar
 
 # seed of the zero-translation perturbation draws (the JAX package draws
 # them from the fixed key jax.random.key(0); torch cannot give those bits)
@@ -108,11 +110,6 @@ class CamI2V(CameraControlLVDM):
     """Plücker + epipolar-masked attention (the machinery CamContextI2V
     extends), without context frames."""
 
-    def __init__(self, config: CamI2VConfig, dtype=torch.bfloat16):
-        super().__init__(config, dtype=dtype)
-        if config.epipolar is not None:
-            require_plain(config.epipolar)
-
     def camera_condition(self, batch: dict, cond_frame_index: torch.Tensor, *, trace_scale_factor: float = 1.0,
                          perturb_noise: Optional[torch.Tensor] = None) -> dict:
         """The UNet's camera payload (reference camcontexti2v.py:525-572),
@@ -121,13 +118,19 @@ class CamI2V(CameraControlLVDM):
         perturb_noise: standard-normal draws of the (B, T, T, 3, 1)
         translations' shape for the zero-translation perturbation; by default
         drawn from a CPU `torch.Generator` seeded with PERTURB_SEED (the JAX
-        package uses a fixed JAX key: same distribution, other bits)."""
+        package uses a fixed JAX key: same distribution, other bits).
+
+        The epipolar part (JAX `camc2v_tpu/models/camera_base.py:185-201`):
+        none with `is_3d_full_attn`; F and `epi_prep`
+        (`prepare_plain_epipolar`) for the plain band; otherwise the level
+        masks (`masks`, `build_epipolar_masks`) and `epi_prep`, each level's
+        attention mask in K2's padded form (`prepare_masked_epipolar`)."""
         cfg: CamI2VConfig = self.config
         video = batch["video"]
         b, t, H, W = video.shape[:4]
         K, rel_c2w = self.relative_c2w_from_batch(batch, cond_frame_index, trace_scale_factor)
         cam: dict[str, Any] = {"cond_frame_index": cond_frame_index}
-        if cfg.epipolar is not None:
+        if cfg.epipolar is not None and not cfg.epipolar.is_3d_full_attn:
             pairs = G.relative_c2w_pairs(rel_c2w)  # (B, T, T, 4, 4)
             R, tvec = pairs[..., :3, :3], pairs[..., :3, 3:4]
             if cfg.epipolar.add_small_perturbation_on_zero_T:
@@ -135,8 +138,12 @@ class CamI2V(CameraControlLVDM):
                     perturb_noise = torch.randn(tvec.shape, generator=torch.Generator().manual_seed(PERTURB_SEED))
                 tvec = G.add_small_perturbation(tvec, perturb_noise.to(tvec.device))
             F = G.fundamental_matrix(K[:, None].expand(b, t, t, 3, 3), R, tvec)
-            cam["F"] = F
-            cam["epi_prep"] = prepare_plain_epipolar(F, cfg.epipolar)
+            if plain_epipolar(cfg.epipolar):
+                cam["F"] = F
+                cam["epi_prep"] = prepare_plain_epipolar(F, cfg.epipolar)
+            else:
+                cam["masks"] = G.build_epipolar_masks(F, t, (H // 8, W // 8), cfg.epipolar)
+                cam["epi_prep"] = prepare_masked_epipolar(cam["masks"], cfg.epipolar, cond_frame_index)
         plucker = self.plucker_features(K, rel_c2w, H, W)
         if plucker is not None:
             cam["plucker"] = plucker

@@ -11,13 +11,30 @@ Token tensors are (N, L, C); SpatialTransformer takes (B*T, H, W, C) maps and
 TemporalTransformer (B, T, H, W, C) videos. One module tree serves both
 paths, as in the JAX package. When `ops.route` picks the kernels (bf16 on
 the card), every unmasked self-attention over T tokens with T | 64, T <= 32
-(`ta.seq_ok`) runs the fused kernel K3 (with the block's LayerNorm and
-residual when the whole attention step fuses), every feed-forward runs K4,
-and all other attention goes through the `dot_product_attention` seam (K2). A shape that K3 or K4
+(`ta.seq_ok`) and no relative positions runs the fused kernel K3 (with the
+block's LayerNorm and residual when the whole attention step fuses), every
+feed-forward runs K4, and all other attention goes through the
+`dot_product_attention` seam (K2). A shape that K3 or K4
 cannot take raises in its wrapper; none of the model's does (K3: T = 16,
 C in {320, 512, 640, 1280}, head dim 64; K4: C in {320, 512, 640, 1280}).
 No K3 or K4 site stays plain on the card in a bf16 model; in a model built
 in f32 all of them do, because K3 and K4 are bf16 kernels.
+
+The temporal transformer's other forms (all off in the shipped yamls):
+  * `use_causal_attention`: a (T, T) lower-triangular mask on attn1 and on
+    attn2 when it is a self-attention; a masked attention never takes K3
+    (the JAX site rule `_ln_mha_fusable`, `camc2v_tpu/nn/attention.py:
+    360-371`), so it goes through the seam to K2 with the mask shared by the
+    heads;
+  * `use_relative_position`: learned `RelativePosition` tables for keys and
+    values (JAX `:35-58`); the key table enters as an additive bias, which
+    K2 does not take, so those attentions run the plain `xla_attention`
+    route, plus the probabilities' product with the value table (JAX
+    `:161-190`); no K3 either;
+  * `temporal_selfatt_only=False`: attn2 attends to the text tokens of the
+    frame's context, pixel row k of sample j reading frame k // (hw / T)'s
+    (the reference's repeat layout; no causal mask on that path); attn1 keeps
+    K3 where it fuses, attn2 goes through the seam (K2, no mask).
 """
 
 from __future__ import annotations
@@ -43,15 +60,35 @@ def _fused_mha_ok(x, dtype) -> bool:
     return ops.route(x, dtype) and ta.seq_ok(x.shape[1])
 
 
+class RelativePosition(nn.Module):
+    """Learned relative-position table of the temporal attention (reference
+    lvdm/modules/attention.py:22-41): (Lq, Lk, num_units) embeddings of the
+    clipped key-minus-query distance."""
+
+    def __init__(self, num_units: int, max_relative_position: int):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(torch.empty(2 * max_relative_position + 1, num_units))
+
+    def forward(self, length_q: int, length_k: int) -> torch.Tensor:
+        dev = self.embeddings_table.device
+        distance = torch.arange(length_k, device=dev)[None, :] - torch.arange(length_q, device=dev)[:, None]
+        m = self.max_relative_position
+        return self.embeddings_table.float()[distance.clamp(-m, m) + m]
+
+
 class CrossAttention(nn.Module):
     """Multi-head (cross-)attention with the optional dual text/image context
     (reference lvdm/modules/attention.py:44-211): the first `text_context_len`
     context tokens go through to_k/to_v, the rest through to_k_ip/to_v_ip,
     combined as `out + scale * out_ip * (tanh(alpha) + 1)` with the learnable
-    gate."""
+    gate. `relative_position` adds the temporal relative-position terms
+    (tables of `temporal_length` distances): q·k_rel as a bias of the
+    logits and the probabilities' product with v_rel."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, *, heads: int = 8,
-                 dim_head: int = 64, image_cross_attention: bool = False,
+                 dim_head: int = 64, relative_position: bool = False, temporal_length: Optional[int] = None,
+                 image_cross_attention: bool = False,
                  image_cross_attention_scale: float = 1.0,
                  image_cross_attention_scale_learnable: bool = False, text_context_len: int = 77,
                  dtype=torch.float32):
@@ -66,6 +103,12 @@ class CrossAttention(nn.Module):
         self.to_k = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_v = Dense(ctx_dim, inner, bias=False, dtype=dtype)
         self.to_out = Dense(inner, query_dim, dtype=dtype)
+        self.relative_position = relative_position
+        if relative_position:
+            if temporal_length is None:
+                raise ValueError("CrossAttention: relative_position needs temporal_length")
+            self.relative_position_k = RelativePosition(dim_head, temporal_length)
+            self.relative_position_v = RelativePosition(dim_head, temporal_length)
         self.alpha = None
         if image_cross_attention:
             self.to_k_ip = Dense(ctx_dim, inner, bias=False, dtype=dtype)
@@ -84,7 +127,7 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None, mask=None, *, context_mask=None):
         self_attn = context is None
-        if self_attn and mask is None and _fused_mha_ok(x, self.dtype):
+        if self_attn and mask is None and not self.relative_position and _fused_mha_ok(x, self.dtype):
             return self.fused_self_attention(x)
         h, d = self.heads, self.dim_head
         inner = h * d
@@ -98,9 +141,21 @@ class CrossAttention(nn.Module):
             ctx = ctx[:, : self.text_context_len]
 
         split = lambda t: t.reshape(t.shape[0], t.shape[1], h, d)
-        q = split(self.to_q(x))
+        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
         attn_mask = None if mask is None else mask[:, None]
-        out = dot_product_attention(q, split(self.to_k(ctx)), split(self.to_v(ctx)), mask=attn_mask)
+        bias = None
+        if self.relative_position:
+            k_rel = self.relative_position_k(q.shape[1], k.shape[1])  # (Lq, Lk, D) f32
+            bias = torch.einsum("bqhd,qkd->bhqk", q.float(), k_rel) * d ** -0.5
+        out = dot_product_attention(q, k, v, bias=bias, mask=attn_mask)
+        if self.relative_position:
+            # the value table's term needs the probabilities: recomputed (JAX :174-190)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5 + bias
+            if attn_mask is not None:
+                logits = torch.where(attn_mask, logits, torch.finfo(torch.float32).min)
+            probs = torch.softmax(logits, dim=-1)
+            v_rel = self.relative_position_v(q.shape[1], k.shape[1])
+            out = out + torch.einsum("bhqk,qkd->bqhd", probs, v_rel).to(out.dtype)
         out = out.reshape(out.shape[0], out.shape[1], inner)
         if ctx_img is not None:
             ip_mask = None if ctx_img_mask is None else ctx_img_mask[:, None, None, :]
@@ -161,10 +216,16 @@ class BasicTransformerBlock(nn.Module):
         (`cc_projection` zero-initialised in the reference), else
         `x = attn1(normed) + x`.
     attn1 then runs K3 without its LayerNorm, since norm1's output feeds the
-    branch too; `cc_projection` is a plain product, as in the JAX package."""
+    branch too; `cc_projection` is a plain product, as in the JAX package.
+
+    `mask` (1, T, T) (the causal mask) goes to attn1 and to attn2 when that
+    is a self-attention; `relative_position` gives both self-attentions
+    their tables (attn2 only without a context). Either keeps the block off
+    K3."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, *, context_dim: Optional[int] = None,
-                 disable_self_attn: bool = False, image_cross_attention: bool = False,
+                 disable_self_attn: bool = False, relative_position: bool = False,
+                 temporal_length: Optional[int] = None, image_cross_attention: bool = False,
                  image_cross_attention_scale_learnable: bool = False, text_context_len: int = 77,
                  use_camera: bool = False, epipolar: Optional[EpipolarConfig] = None,
                  add_type: str = "add_to_main_branch", camera_mode: str = "plucker_epipolar", pose_dim: int = 12,
@@ -184,12 +245,15 @@ class BasicTransformerBlock(nn.Module):
         self.cc_projection = None
         if camera_mode != "plucker_epipolar":
             self.cc_projection = Dense(dim + pose_dim if camera_mode == "motionctrl" else dim, dim, dtype=dtype)
+        self.relative_position = relative_position
         self.norm1 = LayerNormF32(dim)
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None, heads=n_heads,
-                                    dim_head=d_head, dtype=dtype)
+                                    dim_head=d_head, relative_position=relative_position,
+                                    temporal_length=temporal_length, dtype=dtype)
         self.norm2 = LayerNormF32(dim)
         self.attn2 = CrossAttention(
             dim, context_dim, heads=n_heads, dim_head=d_head,
+            relative_position=relative_position and context_dim is None, temporal_length=temporal_length,
             image_cross_attention=image_cross_attention,
             image_cross_attention_scale_learnable=image_cross_attention_scale_learnable,
             text_context_len=text_context_len, dtype=dtype,
@@ -197,7 +261,7 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim, dim, dtype=dtype)
 
-    def _camera_step(self, x, camera: dict, spatial_hw: tuple[int, int]):
+    def _camera_step(self, x, camera: dict, spatial_hw: tuple[int, int], mask=None):
         hh, ww = spatial_hw
         n, t, _ = x.shape
         b = n // (hh * ww)
@@ -212,40 +276,43 @@ class BasicTransformerBlock(nn.Module):
             zero_init_x = zero_init_x + self.pluker_projection(epi_in)
         if self.epipolar is not None:
             feats = epi_in.reshape(b, hh, ww, t, -1).permute(0, 3, 1, 2, 4)
-            zero_init_x = zero_init_x + self.epipolar(feats, F=camera.get("F"), prep=camera.get("epi_prep"))
+            zero_init_x = zero_init_x + self.epipolar(feats, F=camera.get("F"), prep=camera.get("epi_prep"),
+                                                      masks=camera.get("masks"),
+                                                      cond_frame_index=camera.get("cond_frame_index"))
         if self.add_type == "add_to_main_branch":
-            return zero_init_x + self.attn1(normed) + x
-        return self.attn1(normed + zero_init_x) + x
+            return zero_init_x + self.attn1(normed, mask=mask) + x
+        return self.attn1(normed + zero_init_x, mask=mask) + x
 
-    def _baseline_step(self, x, camera: dict):
+    def _baseline_step(self, x, camera: dict, mask=None):
         normed = self.norm1(x)
         if self.camera_mode == "motionctrl":
-            x = self.attn1(normed) + x
+            x = self.attn1(normed, mask=mask) + x
             rt = camera["RT"]  # (B, T, pose_dim)
             rt_tok = rt.repeat_interleave(x.shape[0] // rt.shape[0], dim=0).to(x.dtype)  # (B*h*w, T, pose_dim)
             return self.cc_projection(torch.cat([x, rt_tok], dim=-1))
         plucker = camera.get("plucker")  # (B, T, h, w, C) of this level, or None
         if plucker is None:
-            return self.attn1(normed) + x
+            return self.attn1(normed, mask=mask) + x
         n, t, _ = x.shape
         pl_tokens = plucker.permute(0, 2, 3, 1, 4).reshape(n, t, -1).to(normed.dtype)
-        return self.attn1(normed + self.cc_projection(normed + pl_tokens)) + x
+        return self.attn1(normed + self.cc_projection(normed + pl_tokens), mask=mask) + x
 
-    def forward(self, x, context=None, *, context_mask=None, camera: Optional[dict] = None,
+    def forward(self, x, context=None, mask=None, *, context_mask=None, camera: Optional[dict] = None,
                 spatial_hw: Optional[tuple[int, int]] = None):
-        fusable = _fused_mha_ok(x, self.dtype)
+        # the JAX site rule (`_ln_mha_fusable`): no relative positions, no mask
+        fusable = _fused_mha_ok(x, self.dtype) and not self.relative_position and mask is None
         if camera is not None and self.cc_projection is not None:
-            x = self._baseline_step(x, camera)
+            x = self._baseline_step(x, camera, mask)
         elif camera is not None and (self.pluker_projection is not None or self.epipolar is not None):
-            x = self._camera_step(x, camera, spatial_hw)
+            x = self._camera_step(x, camera, spatial_hw, mask)
         elif not self.disable_self_attn and fusable:
             x = self.attn1.fused_self_attention(x, self.norm1)
         else:
-            x = self.attn1(self.norm1(x), context=context if self.disable_self_attn else None) + x
+            x = self.attn1(self.norm1(x), context=context if self.disable_self_attn else None, mask=mask) + x
         if context is None and fusable:
             x = self.attn2.fused_self_attention(x, self.norm2)
         else:
-            x = self.attn2(self.norm2(x), context=context, context_mask=context_mask) + x
+            x = self.attn2(self.norm2(x), context=context, mask=mask, context_mask=context_mask) + x
         if ops.route(x, self.dtype):
             return gff.fused_ln_geglu_ff(
                 x.contiguous(), self.norm3.weight, self.norm3.bias, self.ff.geglu.proj.weight,
@@ -286,33 +353,47 @@ class SpatialTransformer(nn.Module):
 class TemporalTransformer(nn.Module):
     """Temporal transformer over T tokens per pixel: (B, T, H, W, C) -> same
     (reference lvdm/modules/attention.py:323-428 + modified_forwards.py:
-    401-450), self-attention only, with the camera branch when configured."""
+    401-450), with the camera branch when configured and the forms of the
+    module docstring: `causal_attention`, `relative_position` (tables of
+    `temporal_length` distances) and, with `only_self_att=False`, attn2 over
+    the per-frame context (B*T, L, context_dim)."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, *, depth: int = 1,
-                 only_self_att: bool = True, causal_attention: bool = False,
-                 relative_position: bool = False, use_camera: bool = False,
+                 only_self_att: bool = True, context_dim: Optional[int] = None, causal_attention: bool = False,
+                 relative_position: bool = False, temporal_length: Optional[int] = None, use_camera: bool = False,
                  epipolar: Optional[EpipolarConfig] = None, add_type: str = "add_to_main_branch",
                  camera_mode: str = "plucker_epipolar", pose_dim: int = 12, dtype=torch.float32):
         super().__init__()
-        if not only_self_att or causal_attention or relative_position:
-            raise NotImplementedError(
-                "TemporalTransformer: temporal cross-attention, causal masks and relative "
-                "positions are not ported (all off in the shipped configs)")
         inner = n_heads * d_head
-        self.depth = depth
+        self.depth, self.only_self_att, self.causal_attention = depth, only_self_att, causal_attention
         self.norm = GroupNorm32(in_channels, eps=1e-6)
         self.proj_in = Dense(in_channels, inner, dtype=dtype)
         for i in range(depth):
             setattr(self, f"block_{i}", BasicTransformerBlock(
-                inner, n_heads, d_head, use_camera=use_camera, epipolar=epipolar, add_type=add_type,
-                camera_mode=camera_mode, pose_dim=pose_dim, dtype=dtype))
+                inner, n_heads, d_head, context_dim=None if only_self_att else context_dim,
+                relative_position=relative_position, temporal_length=temporal_length, use_camera=use_camera,
+                epipolar=epipolar, add_type=add_type, camera_mode=camera_mode, pose_dim=pose_dim, dtype=dtype))
         self.proj_out = Dense(inner, in_channels, dtype=dtype)
 
-    def forward(self, x, camera: Optional[dict] = None):
+    def forward(self, x, context=None, camera: Optional[dict] = None):
+        """context: the UNet's per-frame context (B*T, L, D), read only with
+        only_self_att=False."""
         b, t, hh, ww, c = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
+        hw = hh * ww
+        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hw, t, c)
         h = self.proj_in(h)
+        mask = None
+        if self.causal_attention:
+            mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()[None]  # shared by every row
+        block_ctx = None
+        if not self.only_self_att and context is not None:
+            if hw % t:
+                raise ValueError(f"TemporalTransformer: only_self_att=False needs T | h*w, got T={t} hw={hw}")
+            # pixel row k of sample j reads frame k // (hw / T)'s context; no causal mask here
+            block_ctx = context.reshape(b, t, *context.shape[1:]).repeat_interleave(hw // t, dim=1)
+            block_ctx = block_ctx.reshape(b * hw, *context.shape[1:])
+            mask = None
         for i in range(self.depth):
-            h = getattr(self, f"block_{i}")(h, camera=camera, spatial_hw=(hh, ww))
+            h = getattr(self, f"block_{i}")(h, context=block_ctx, mask=mask, camera=camera, spatial_hw=(hh, ww))
         h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
         return (x + h).contiguous()

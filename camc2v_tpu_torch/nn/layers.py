@@ -153,6 +153,11 @@ def upsample_nearest2x(x):
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
 
 
+def avg_pool2x(x):
+    """(N, H, W, C) -> (N, H/2, W/2, C), 2x2 average (the JAX `avg_pool`, VALID)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int, out_channels: int, *, use_conv: bool = True, dtype=torch.float32):
         super().__init__()
@@ -171,9 +176,7 @@ class Downsample(nn.Module):
         self.op = Conv(channels, out_channels, (3, 3), stride=2, dtype=dtype) if use_conv else None
 
     def forward(self, x):
-        if self.op is not None:
-            return self.op(x)
-        return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+        return self.op(x) if self.op is not None else avg_pool2x(x)
 
 
 class TemporalConvBlock(nn.Module):
@@ -204,12 +207,15 @@ class ResBlock(nn.Module):
     (reference openaimodel3d.py:109-236). With `deterministic=False`
     (training) `dropout` applies before out_conv and the temporal conv block
     drops at 0.1, as in the JAX module; the draws come from the global RNG,
-    whose state `torch.utils.checkpoint` replays in the recompute."""
+    whose state `torch.utils.checkpoint` replays in the recompute. `up` /
+    `down` (the UNet's `resblock_updown`) resample the normed input and the
+    skip path, 2x nearest or 2x2 average, before in_conv."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, *, dropout: float = 0.0,
-                 use_scale_shift_norm: bool = False, use_temporal_conv: bool = False, dtype=torch.float32):
+                 use_scale_shift_norm: bool = False, use_temporal_conv: bool = False, up: bool = False,
+                 down: bool = False, dtype=torch.float32):
         super().__init__()
-        self.dropout = dropout
+        self.dropout, self.up, self.down = dropout, up, down
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_norm = GroupNorm32(in_ch)
         self.in_conv = Conv(in_ch, out_ch, (3, 3), dtype=dtype)
@@ -220,7 +226,12 @@ class ResBlock(nn.Module):
         self.temporal_conv = TemporalConvBlock(out_ch, dtype=dtype) if use_temporal_conv else None
 
     def forward(self, x, emb, *, batch_size: int, deterministic: bool = True):
-        h = self.in_conv(self.in_norm(x, silu=True))
+        h = self.in_norm(x, silu=True)
+        if self.up:
+            h, x = upsample_nearest2x(h), upsample_nearest2x(x)
+        elif self.down:
+            h, x = avg_pool2x(h), avg_pool2x(x)
+        h = self.in_conv(h)
         emb_out = self.emb_proj(F.silu(emb))[:, None, None, :]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)

@@ -20,29 +20,75 @@ motionctrl_modified_modules.py:69).
 
 Training (`deterministic=False`, as in JAX): the ResBlocks drop out
 (`UNetConfig.dropout`, 0.1 in the flagship) and, with `remat`, every
-res/spatial/temporal layer of every
-input, middle and output block runs under `torch.utils.checkpoint`
-(non-reentrant, nothing saved inside it), the JAX per-layer `nn.remat` with
-`remat_policy=None`; conv_in, init_attn, the resamplers and the output head
-are not rematerialised, as in JAX. The checkpoint replays the global RNG
-state, so the recompute draws the same dropout masks. The transformers,
-the epipolar attention and the adaptor have dropout 0 in every config, so
-the port gives them no dropout and no flag.
+res/spatial/temporal layer of every input, middle and output block runs
+under `torch.utils.checkpoint` (non-reentrant), the JAX per-layer `nn.remat`;
+conv_in, init_attn, the resamplers and the output head are not
+rematerialised, as in JAX. What the checkpoint saves inside a layer is the
+remat policy (`remat_policy`: the config's `remat_policy`, overridden by
+the environment's `CAMC2V_REMAT_POLICY`, read at each call, as the JAX
+`_remat_policy`):
+  * `none` (or None): nothing; the backward re-runs every layer's forward,
+    kernel forwards included;
+  * `dots`: the outputs of `aten.mm` and `aten.addmm` (the JAX
+    `dots_with_no_batch_dims_saveable`: the projections and feed-forwards
+    that do not run in a kernel);
+  * `dots_batch`: those and `aten.bmm` / `aten.baddbmm` (`dots_saveable`);
+  * `pallas`: the outputs of every kernel forward with a gradient (K1, K2
+    with its logsumexp, K3, K4, K6 / K6p with theirs, K8, K9), which run as
+    the dispatcher op `camc2v::kernel_forward` (`ops.saved_forward`), so no
+    kernel forward re-runs in the backward; on the CPU the same op carries
+    the plain twins' forwards;
+  * `dots_pallas`: the union of `dots` and `pallas`.
+The policies other than `none` run `create_selective_checkpoint_contexts`
+with that list of ops. K1, K3, K4, K8 and K9's backward re-runs their f32
+twin to form the vector-Jacobian product (`ops.recompute_grad`) under every
+policy: a policy saves forwards, not that recompute. The checkpoint replays
+the global RNG state (`preserve_rng_state`), so the recompute draws the same
+dropout masks. The transformers, the epipolar attention and the adaptor have
+dropout 0 in every config, so the port gives them no dropout and no flag.
+
+`resblock_updown` puts ResBlocks with `down` / `up` (no temporal conv) in
+place of the Downsample / Upsample layers, under the same names
+(`in_{i}_down`, `out_{i}_up`), as JAX does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from camc2v_tpu_torch import ops  # noqa: F401  (registers the camc2v::kernel_forward op)
 
 from camc2v_tpu_torch.config import UNetConfig
 from camc2v_tpu_torch.core.schedules import timestep_embedding
 from camc2v_tpu_torch.nn.attention import SpatialTransformer, TemporalTransformer
 from camc2v_tpu_torch.nn.layers import Conv, Downsample, GroupNorm32, ResBlock, TimestepEmbedMLP, Upsample
+
+
+_aten = torch.ops.aten
+_DOTS = (_aten.mm.default, _aten.addmm.default)
+_BATCH_DOTS = (_aten.bmm.default, _aten.baddbmm.default)
+_KERNELS = (torch.ops.camc2v.kernel_forward.default,)
+REMAT_POLICIES = {"dots": _DOTS, "dots_batch": _DOTS + _BATCH_DOTS, "pallas": _KERNELS,
+                  "dots_pallas": _DOTS + _KERNELS}
+
+
+def remat_policy(name: Optional[str]) -> Optional[tuple]:
+    """The ops whose outputs a block's checkpoint saves under the policy
+    `name` (the environment's CAMC2V_REMAT_POLICY wins over it), or None:
+    save nothing (the module docstring; the JAX `_remat_policy`)."""
+    name = os.environ.get("CAMC2V_REMAT_POLICY", name or "none")
+    if name in (None, "", "none"):
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r} (none | dots | dots_batch | pallas | dots_pallas)")
+    return REMAT_POLICIES[name]
 
 
 class UNetModel(nn.Module):
@@ -51,11 +97,7 @@ class UNetModel(nn.Module):
     def __init__(self, config: UNetConfig, dtype=torch.bfloat16):
         super().__init__()
         cfg = self.config = config
-        if cfg.resblock_updown:
-            raise NotImplementedError("UNetModel: resblock_updown is not ported (off in every shipped config)")
-        if cfg.remat_policy not in (None, "none"):
-            raise NotImplementedError(f"UNetModel: remat_policy '{cfg.remat_policy}' is not ported (only None: "
-                                      "save nothing inside a block)")
+        remat_policy(cfg.remat_policy)  # an unknown name raises where the model is built
         self.dtype = dtype
         ch = cfg.model_channels
         emb_dim = ch * 4
@@ -72,7 +114,8 @@ class UNetModel(nn.Module):
                 dtype=dtype,
             )
 
-        def temporal(ch_, n_heads=None, d_head=None, with_camera=True, camera_mode=cfg.camera_mode):
+        def temporal(ch_, n_heads=None, d_head=None, with_camera=True, camera_mode=cfg.camera_mode,
+                     causal=cfg.use_causal_attention):
             if n_heads is None:
                 n_heads, d_head = cfg.heads_for(ch_)
             # the reference's camera patch skips temporal blocks as wide as
@@ -81,23 +124,25 @@ class UNetModel(nn.Module):
                 with_camera = False
             return TemporalTransformer(
                 ch_, n_heads, d_head, depth=cfg.transformer_depth, only_self_att=cfg.temporal_selfatt_only,
-                causal_attention=cfg.use_causal_attention, relative_position=cfg.use_relative_position,
-                use_camera=cfg.use_camera and with_camera, epipolar=cfg.epipolar if with_camera else None,
-                add_type=cfg.add_type, camera_mode=camera_mode, pose_dim=cfg.pose_dim, dtype=dtype,
+                context_dim=cfg.context_dim, causal_attention=causal, relative_position=cfg.use_relative_position,
+                temporal_length=cfg.temporal_length, use_camera=cfg.use_camera and with_camera,
+                epipolar=cfg.epipolar if with_camera else None, add_type=cfg.add_type, camera_mode=camera_mode,
+                pose_dim=cfg.pose_dim, dtype=dtype,
             )
 
-        def resblock(in_ch, out_ch):
+        def resblock(in_ch, out_ch, up=False, down=False):
             return ResBlock(in_ch, out_ch, emb_dim, dropout=cfg.dropout,
-                            use_scale_shift_norm=cfg.use_scale_shift_norm, use_temporal_conv=cfg.temporal_conv,
+                            use_scale_shift_norm=cfg.use_scale_shift_norm,
+                            use_temporal_conv=cfg.temporal_conv and not (up or down), up=up, down=down,
                             dtype=dtype)
 
         self.conv_in = Conv(cfg.in_channels, ch, (3, 3), dtype=dtype)
         if cfg.addition_attention:
-            # init_attn: 8 heads x num_head_channels whatever the width; only
-            # MotionCtrl's sees the camera
+            # init_attn: 8 heads x num_head_channels whatever the width, never
+            # causal; only MotionCtrl's sees the camera
             self.init_attn = temporal(ch, 8, cfg.num_head_channels, with_camera=False,
                                       camera_mode="motionctrl" if cfg.camera_mode == "motionctrl" else
-                                      "plucker_epipolar")
+                                      "plucker_epipolar", causal=False)
 
         # (kind, name) per layer of each block; modules registered by name
         self.input_layout: list[list[tuple[str, str]]] = []
@@ -119,8 +164,12 @@ class UNetModel(nn.Module):
                 chans.append(ch)
                 blk += 1
             if level != len(cfg.channel_mult) - 1:
-                down = Downsample(ch, ch, use_conv=cfg.conv_resample, dtype=dtype)
-                self.input_layout.append([self._add("resample", f"in_{blk}_down", down)])
+                if cfg.resblock_updown:
+                    layer = self._add("res", f"in_{blk}_down", resblock(ch, ch, down=True))
+                else:
+                    layer = self._add("resample", f"in_{blk}_down",
+                                      Downsample(ch, ch, use_conv=cfg.conv_resample, dtype=dtype))
+                self.input_layout.append([layer])
                 self.input_ds.append(ds)
                 chans.append(ch)
                 ds *= 2
@@ -147,8 +196,11 @@ class UNetModel(nn.Module):
                     if cfg.temporal_attention:
                         layers.append(self._add("temporal", f"out_{blk}_temporal", temporal(ch)))
                 if level and i == cfg.num_res_blocks:
-                    up = Upsample(ch, ch, use_conv=cfg.conv_resample, dtype=dtype)
-                    layers.append(self._add("resample", f"out_{blk}_up", up))
+                    if cfg.resblock_updown:
+                        layers.append(self._add("res", f"out_{blk}_up", resblock(ch, ch, up=True)))
+                    else:
+                        layers.append(self._add("resample", f"out_{blk}_up",
+                                                Upsample(ch, ch, use_conv=cfg.conv_resample, dtype=dtype)))
                     ds //= 2
                 self.output_layout.append(layers)
                 blk += 1
@@ -177,11 +229,16 @@ class UNetModel(nn.Module):
 
     def _apply_block(self, layers, h, emb, context, b, context_mask, camera=None, deterministic=True):
         remat = self.config.remat and not deterministic
+        saved = remat_policy(self.config.remat_policy) if remat else None
 
         def run(module, *args, **kwargs):
-            if remat:
+            if not remat:
+                return module(*args, **kwargs)
+            if saved is None:
                 return checkpoint(module, *args, use_reentrant=False, **kwargs)
-            return module(*args, **kwargs)
+            return checkpoint(module, *args, use_reentrant=False,
+                              context_fn=functools.partial(create_selective_checkpoint_contexts, list(saved)),
+                              **kwargs)
 
         for kind, name in layers:
             module = getattr(self, name)
@@ -191,7 +248,8 @@ class UNetModel(nn.Module):
                 h = run(module, h, context=context, context_mask=context_mask)
             elif kind == "temporal":
                 n, hh, ww, c = h.shape
-                h = run(module, h.reshape(b, n // b, hh, ww, c), camera=camera).reshape(n, hh, ww, c)
+                tctx = None if module.only_self_att else context
+                h = run(module, h.reshape(b, n // b, hh, ww, c), context=tctx, camera=camera).reshape(n, hh, ww, c)
             else:
                 h = module(h)
         return h
@@ -232,7 +290,9 @@ class UNetModel(nn.Module):
         h = self.conv_in(x.reshape(b * t, hh, ww, x.shape[-1]).to(self.dtype))
         if cfg.addition_attention:
             init_cam = camera if cfg.camera_mode == "motionctrl" else None
-            h = self.init_attn(h.reshape(b, t, *h.shape[1:]), camera=init_cam).reshape(b * t, *h.shape[1:])
+            ictx = None if self.init_attn.only_self_att else context
+            h = self.init_attn(h.reshape(b, t, *h.shape[1:]), context=ictx, camera=init_cam).reshape(
+                b * t, *h.shape[1:])
         hs = [h]
         for layers, ds in zip(self.input_layout, self.input_ds):
             h = self._apply_block(layers, h, emb, context, b, context_mask, self._camera_for(camera, ds),

@@ -24,6 +24,15 @@ VJPs do. A ctypes launch writes a fresh tensor outside the graph, so kernels
 launch only with grad mode off, as inside a Function's forward and backward:
 `_build.load`, which every launch calls, raises otherwise.
 
+A forward that records a gradient runs through one dispatcher op,
+`torch.ops.camc2v.kernel_forward` (`saved_forward`): a ctypes launch is
+invisible to PyTorch's dispatcher, so without the op a selective-checkpoint
+policy could not save the kernels' outputs (the UNet's `pallas` remat
+policy, `nn/unet3d.py::remat_policy`). The op takes the forward's tensors
+and returns its outputs (K2's and K6's with their logsumexp); its fake
+implementation is the plain twin. Forwards without a gradient (generation)
+launch directly, so the op adds nothing to generation's launch path.
+
 `LAUNCHES` counts, per kernel wrapper, the calls that launched it on the
 card (K5 and K7 each launch their dq and dk/dv kernels in one call, K9 its
 moments and apply kernels); `reset_launch_counts()` zeroes it.
@@ -42,6 +51,8 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
+from typing import Optional
 
 import torch
 
@@ -99,15 +110,53 @@ def on_card(x: torch.Tensor, what: str) -> bool:
     return x.is_cuda
 
 
+# the forward a `saved_forward` call runs: an op's schema takes tensors, not
+# callables, so the callable rides here for the length of the call
+_forward_fns = threading.local()
+
+
+@torch.library.custom_op("camc2v::kernel_forward", mutates_args=())
+def _kernel_forward(tensors: list[Optional[torch.Tensor]]) -> list[torch.Tensor]:
+    outs = _forward_fns.run(*tensors)
+    outs = [outs] if isinstance(outs, torch.Tensor) else list(outs)
+    inputs = {t.untyped_storage().data_ptr() for t in tensors if t is not None}
+    # an op's output may not alias its input (a twin may hand one back)
+    return [o.clone() if o.untyped_storage().data_ptr() in inputs else o for o in outs]
+
+
+@_kernel_forward.register_fake
+def _(tensors):
+    outs = _forward_fns.twin(*tensors)
+    return [outs] if isinstance(outs, torch.Tensor) else list(outs)
+
+
+def saved_forward(run, twin, *tensors):
+    """`run(*tensors)` (a kernel launch, or `twin` on the plain route) as the
+    dispatcher op `camc2v::kernel_forward`, whose outputs a selective
+    checkpoint can save; the outputs come back as run returns them (a
+    tensor, or a tuple)."""
+    prev = getattr(_forward_fns, "run", None), getattr(_forward_fns, "twin", None)
+    _forward_fns.run, _forward_fns.twin = run, twin
+    try:
+        outs = torch.ops.camc2v.kernel_forward(list(tensors))
+    finally:
+        _forward_fns.run, _forward_fns.twin = prev
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
 class _Recompute(torch.autograd.Function):
-    """forward: `run(*tensors)` (a kernel launch or its plain twin);
-    backward: the vector-Jacobian product of `twin(*tensors)`, recomputed from
-    the saved inputs under `torch.enable_grad()`."""
+    """forward: `run(*tensors)` (a kernel launch or its plain twin; through
+    `saved_forward` when a gradient is recorded); backward: the
+    vector-Jacobian product of `twin(*tensors)`, recomputed from the saved
+    inputs under `torch.enable_grad()`. No remat policy changes that
+    backward: it re-runs the f32 twin whatever the forward saved."""
 
     @staticmethod
     def forward(ctx, run, twin, *tensors):
         ctx.twin = twin
         ctx.save_for_backward(*tensors)
+        if any(ctx.needs_input_grad[2:]):
+            return saved_forward(run, twin, *tensors)
         return run(*tensors)
 
     @staticmethod

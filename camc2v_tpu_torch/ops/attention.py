@@ -11,8 +11,9 @@ accumulated in f32, f32 softmax, probabilities cast to the input dtype for
 the PV product).
 
 Sites that stay plain on the card, and why:
-  * calls with an additive `bias` (the temporal relative-position bias; off
-    in every shipped config; `xla_attention`): K2 takes masks, not biases;
+  * calls with an additive `bias` (the temporal relative-position bias of
+    `use_relative_position`, off in every shipped config; `xla_attention`):
+    K2 takes masks, not biases, as the Pallas kernel does;
   * per-head masks (a mask whose head axis is > 1; `xla_attention`): K2
     shares one mask across heads; no model site builds one;
   * head dims that are not a multiple of 16 or exceed 128: the VAE
@@ -29,8 +30,12 @@ than 32 tokens and its text/image cross-attention (D = 64), the CLIP text
 tower (D = 64, one causal (1, 1, 77, 77) mask shared by the batch), the
 CLIP vision tower (D = 80, Lq = Lk = 257, no mask), the pose encoder's
 D = 80 level (C = 640), and the epipolar attention where its mask is
-materialised (`nn/epipolar.py`: the ds32 level and the middle block, D = 64,
-a (B, Lq, 4 + Lq) mask shared by the heads). The Resampler's attention does
+materialised (`nn/epipolar.py`: with the plain band the ds32 level and the
+middle block; with any other variant every level, up to (B, 16384, 4 +
+16384) at ds8, or (B, 16384, 4 + 1024) with `only_on_cond_frame`; D = 64, a
+mask shared by the heads; with `is_3d_full_attn` no mask), and the temporal
+transformer's causal mask (`use_causal_attention`, one (1, 1, T, T) mask
+shared by every row). The Resampler's attention does
 not use this seam (`nn/resampler.py`).
 """
 
@@ -67,12 +72,14 @@ def _head_shared_mask(mask: torch.Tensor, b: int, lq: int, lk: int) -> Optional[
     return mask.expand(mask.shape[0], lq, lk)
 
 
-def dot_product_attention(q, k, v, *, bias=None, mask=None, scale: Optional[float] = None):
+def dot_product_attention(q, k, v, *, bias=None, mask=None, scale: Optional[float] = None, mask_tiles=None):
     """Multi-head scaled dot-product attention over (B, L, H, D) -> (B, Lq, H, D).
 
     Every call without a bias and with a head-shared mask goes through
     `flash_attention` (K2 and K5 where the route and head dim allow, their
-    plain twins elsewhere); the rest runs `xla_attention`."""
+    plain twins elsewhere); the rest runs `xla_attention`. mask_tiles: the
+    head-shared mask's `flash_attention.mask_tiles`, when the caller holds
+    them (built per call otherwise)."""
     from camc2v_tpu_torch.ops import flash_attention as fa
 
     if scale is None:
@@ -82,7 +89,7 @@ def dot_product_attention(q, k, v, *, bias=None, mask=None, scale: Optional[floa
         fmask = None if mask is None else _head_shared_mask(mask, b, lq, k.shape[1])
         if mask is None or fmask is not None:
             return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask=fmask, scale=scale,
-                                      kernel=ops.route(q) and fa.flash_supported(q))
+                                      kernel=ops.route(q) and fa.flash_supported(q), tiles=mask_tiles)
     return xla_attention(q, k, v, bias=bias, mask=mask, scale=scale)
 
 

@@ -341,18 +341,23 @@ class _Epipolar(torch.autograd.Function):
         twin_geom = {n: geom[n] for n in ("t", "h", "w", "downsample", "num_registers", "scale")}
         ctx.kernel, ctx.geom, ctx.twin_geom = kernel, geom, twin_geom
         if penalties is not None:
-            if kernel:
-                out = _launch_precomp(q, k, v, lines, penalties, tile_any, geom)
-            else:
-                out = epipolar_attention_precomp_plain(q, k, v, penalties, t=geom["t"], h=geom["h"], w=geom["w"],
-                                                       scale=geom["scale"])
+            twin = lambda q_, k_, v_, pen: epipolar_attention_precomp_plain(  # noqa: E731
+                q_, k_, v_, pen, t=geom["t"], h=geom["h"], w=geom["w"], scale=geom["scale"])
+            run = (lambda q_, k_, v_, pen: _launch_precomp(q_, k_, v_, lines, pen, tile_any, geom)) if kernel \
+                else twin
+            # a gradient's forward is a dispatcher op, so a remat policy can save it
+            out = ops.saved_forward(run, twin, q, k, v, penalties) if want_grad else run(q, k, v, penalties)
             if want_grad:  # the backward re-derives the lse from the lines
                 ctx.save_for_backward(q, k, v, lines, tile_any, None, None)
             return out
+        twin = lambda q_, k_, v_, l_, ta: epipolar_attention_plain(  # noqa: E731
+            q_, k_, v_, l_, return_lse=True, **twin_geom)
         if kernel:
-            out, lse = _launch_fwd(q, k, v, lines, tile_any, geom, want_lse=want_grad)
+            run = lambda q_, k_, v_, l_, ta: _launch_fwd(q_, k_, v_, l_, ta, geom, want_lse=want_grad)  # noqa: E731
         else:
-            out, lse = epipolar_attention_plain(q, k, v, lines, return_lse=True, **twin_geom)
+            run = twin
+        out, lse = ops.saved_forward(run, twin, q, k, v, lines, tile_any) if want_grad else \
+            run(q, k, v, lines, tile_any)
         if want_grad:
             ctx.save_for_backward(q, k, v, lines, tile_any, out, lse)
         return out

@@ -20,7 +20,8 @@ Both kernels are built for Hopper on one core, `csrc/flash_hopper.cuh`
 (TMA copies into an mbarrier ring, wgmma products with register
 accumulators): it tiles queries by 128 and keys by 64, and the wrapper gives
 it the mask zero-padded to whole tiles with the map of its non-empty tiles
-on that grid (`_tiles`).
+on that grid (`mask_tiles`; per call, or once per request where the caller
+holds them, as the epipolar variants' masks do).
 
 `flash_attention` runs `_Flash`, whose forward is K2 (with the lse when a
 gradient is wanted) and whose backward is K5, or the plain twins
@@ -59,25 +60,26 @@ def flash_supported(q: torch.Tensor) -> bool:
 
 
 def flash_attention(q, k, v, *, mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
-                    kernel: bool = True):
+                    kernel: bool = True, tiles: Optional[tuple[torch.Tensor, torch.Tensor]] = None):
     """Attention over (B, L, H, D) through `_Flash`. mask: (B or 1, Lq, Lk)
-    bool, True = attend. CPU tensors take the plain twins; CUDA tensors
-    launch K2 + K5 (which raise on shapes they cannot take) unless `kernel`
-    is False (the seam's plain route)."""
+    bool, True = attend; tiles: its `mask_tiles`, when the caller holds
+    them. CPU tensors take the plain twins; CUDA tensors launch K2 + K5
+    (which raise on shapes they cannot take) unless `kernel` is False (the
+    seam's plain route)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return _Flash.apply(q, k, v, mask, scale, ops.on_card(q, "flash_attention") and kernel)
+    return _Flash.apply(q, k, v, mask, scale, ops.on_card(q, "flash_attention") and kernel, tiles)
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale, kernel):
+    def forward(ctx, q, k, v, mask, scale, kernel, tiles):
         want_lse = any(ctx.needs_input_grad[:3])
-        if kernel:
-            out, lse = _launch_fwd(q, k, v, mask, scale, want_lse=want_lse)
-        else:
-            out, lse = flash_fwd_plain(q, k, v, mask, scale)
-        ctx.scale, ctx.kernel = scale, kernel
+        twin = functools.partial(flash_fwd_plain, scale=scale)
+        run = functools.partial(_launch_fwd, scale=scale, want_lse=want_lse, tiles=tiles) if kernel else twin
+        # a gradient's forward is a dispatcher op, so a remat policy can save it
+        out, lse = ops.saved_forward(run, twin, q, k, v, mask) if want_lse else run(q, k, v, mask)
+        ctx.scale, ctx.kernel, ctx.tiles = scale, kernel, tiles
         if want_lse:
             ctx.save_for_backward(q, k, v, mask, out, lse)
         return out
@@ -85,9 +87,11 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        bwd = flash_bwd if ctx.kernel else flash_bwd_plain
-        dq, dk, dv = bwd(q, k, v, mask, out, lse, dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None, None, None
+        if ctx.kernel:
+            dq, dk, dv = flash_bwd(q, k, v, mask, out, lse, dout.contiguous(), ctx.scale, tiles=ctx.tiles)
+        else:
+            dq, dk, dv = flash_bwd_plain(q, k, v, mask, out, lse, dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def _masked_logits(qs, k, mask):
@@ -166,20 +170,37 @@ def flash_bwd_plain(q, k, v, mask, out, lse, dout, scale):
                                lambda s, e: None if mask is None else mask[:, s:e])
 
 
-def _tiles(mask, b, lq, lk):
+def mask_tiles(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' view of a (B|1, Lq, Lk) bool mask: the mask zero-padded
     to whole tiles, (B|1, ceil(Lq/128)·128, ceil(Lk/64)·64) bool, and the
-    (B, ceil(Lq/128), ceil(Lk/64)) uint8 map of its non-empty tiles."""
+    (B|1, ceil(Lq/128), ceil(Lk/64)) uint8 map of its non-empty tiles. A
+    caller whose mask serves many calls (the epipolar variants' masks, one
+    geometry per request) builds this once and passes it as `tiles`; the
+    unpadded mask is then the view `padded[:, :Lq, :Lk]`."""
+    mb, lq, lk = mask.shape
     nq, nk = -(-lq // BLOCK_Q), -(-lk // BLOCK_K)
-    padded = torch.zeros(mask.shape[0], nq * BLOCK_Q, nk * BLOCK_K, dtype=torch.bool, device=mask.device)
+    padded = torch.zeros(mb, nq * BLOCK_Q, nk * BLOCK_K, dtype=torch.bool, device=mask.device)
     padded[:, :lq, :lk] = mask
-    tile_any = padded.view(-1, nq, BLOCK_Q, nk, BLOCK_K).any(dim=4).any(dim=2)
-    return padded, tile_any.expand(b, nq, nk).contiguous().to(torch.uint8)
+    tile_any = padded.view(mb, nq, BLOCK_Q, nk, BLOCK_K).any(dim=4).any(dim=2)
+    return padded, tile_any.to(torch.uint8)
 
 
-def _check(q, k, v, mask, what):
+def _tiles(mask, b, lq, lk, tiles=None):
+    """The kernels' view of a (B|1, Lq, Lk) mask: its padded form and the
+    (B, ceil(Lq/128), ceil(Lk/64)) uint8 map of non-empty tiles, contiguous,
+    from `tiles` (its `mask_tiles`) or built here."""
+    padded, tile_any = mask_tiles(mask) if tiles is None else tiles
+    nq, nk = -(-lq // BLOCK_Q), -(-lk // BLOCK_K)
+    if padded.shape != (mask.shape[0], nq * BLOCK_Q, nk * BLOCK_K) or tile_any.shape != (mask.shape[0], nq, nk):
+        raise ValueError(f"flash attention: tiles {tuple(padded.shape)}/{tuple(tile_any.shape)} do not match the "
+                         f"mask {tuple(mask.shape)} (`mask_tiles`)")
+    return padded, tile_any.expand(b, nq, nk).contiguous()
+
+
+def _check(q, k, v, mask, what, tiles=None):
     """The kernels' contract; returns (padded mask, tile map, mask batch
-    stride), or (None, None, 0) without a mask."""
+    stride), or (None, None, 0) without a mask. tiles: `mask_tiles(mask)`,
+    built here when absent."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     if not q.is_cuda:
@@ -197,7 +218,7 @@ def _check(q, k, v, mask, what):
         return None, None, 0
     if mask.dtype != torch.bool or mask.dim() != 3 or mask.shape[1:] != (lq, lk) or mask.shape[0] not in (1, b):
         raise ValueError(f"{what}: mask {tuple(mask.shape)} {mask.dtype} (needs bool (B|1, Lq, Lk))")
-    padded, tile_any = _tiles(mask, b, lq, lk)
+    padded, tile_any = _tiles(mask, b, lq, lk, tiles)
     return padded, tile_any, 0 if mask.shape[0] == 1 else padded[0].numel()
 
 
@@ -216,9 +237,9 @@ def _bf16(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.bfloat16))
 
 
-def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool):
+def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool, tiles=None):
     """K2: (out, lse (B, H, Lq) f32 when `want_lse`, else None)."""
-    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_attention")
+    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_attention", tiles)
     b, lq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if want_lse else None
@@ -230,10 +251,10 @@ def _launch_fwd(q, k, v, mask, scale, *, want_lse: bool):
     return out, lse
 
 
-def flash_bwd(q, k, v, mask, out, lse, dout, scale):
+def flash_bwd(q, k, v, mask, out, lse, dout, scale, *, tiles=None):
     """K5: (dq, dk, dv) bf16 from K2's out and lse (B, H, Lq) and dout; the
     pre-pass (qs, delta) runs on the card inside the launch."""
-    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_bwd")
+    mask, tile_any, mask_bstride = _check(q, k, v, mask, "flash_bwd", tiles)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     for name, t in (("dout", dout), ("out", out)):

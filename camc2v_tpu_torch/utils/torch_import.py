@@ -1,5 +1,5 @@
-"""Import of the reference PyTorch checkpoint (a copy of
-`camc2v_tpu/utils/torch_import.py`'s import side).
+"""Import of the reference PyTorch checkpoint and export back to it (a copy
+of `camc2v_tpu/utils/torch_import.py`).
 
 The reference's state-dict names (Lightning `state_dict`, DeepSpeed
 `module.`-wrapped or plain; reference main/utils_train.py:165-214,
@@ -20,14 +20,16 @@ Weight-layout transforms (torch -> JAX, channels-last):
 
 Unmapped reference keys (schedule buffers, EMA copies, the dead penultimate
 CLIP block, ln_post/proj of the vision tower) are reported, not silently
-dropped. Export back to the reference format (`export_state_dict`,
-`save_torch_checkpoint`) is not ported.
+dropped. `export_state_dict` writes a port model's parameters back into a
+reference state dict, key by key of a template (the JAX export, with the
+port's parameters in place of the JAX tree), and `save_torch_checkpoint`
+writes it as a Lightning `{'state_dict': ...}` file.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -356,10 +358,90 @@ def load_torch_checkpoint(path: str) -> dict[str, np.ndarray]:
     return {k: v.numpy() if hasattr(v, "numpy") else np.asarray(v) for k, v in sd.items()}
 
 
-
-
 def load_reference_checkpoint(model: nn.Module, path: str, strict: bool = False) -> dict:
     """Import the reference `.pt`/`.ckpt` at `path` into the port model
     `model` in place (`import_state_dict` on the model's UNet config);
     returns the import's report."""
     return import_state_dict(model, load_torch_checkpoint(path), model.config.unet, strict=strict)
+
+
+# --------------------------------------------------------------- export side
+
+def _to_jax_layout(jax_key: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of `utils/weights.py::_to_torch_layout`."""
+    if not jax_key.endswith("/kernel"):
+        return value
+    if value.ndim == 2:
+        return value.T
+    if value.ndim == 4:  # OIHW -> HWIO
+        return value.transpose(2, 3, 1, 0)
+    if value.ndim == 5:  # OIDHW -> DHWIO
+        return value.transpose(2, 3, 4, 1, 0)
+    raise ValueError(f"{jax_key}: kernel of rank {value.ndim}")
+
+
+def _inverse_transform(arr: np.ndarray, torch_rank: int) -> np.ndarray:
+    """Invert `_transform`: a JAX kernel -> the torch layout of a leaf whose
+    checkpoint tensor had `torch_rank` dims."""
+    if torch_rank == 2:
+        return arr.T
+    if torch_rank == 3 and arr.ndim == 2:
+        # Linear stored as Conv1d(k=1): (in, out) -> (out, in, 1)
+        return arr.T[:, :, None]
+    if torch_rank == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if torch_rank == 5:
+        return arr.transpose(4, 3, 0, 1, 2)
+    return arr
+
+
+def export_state_dict(module: nn.Module, template: dict[str, Any], unet_cfg,
+                      strict: bool = True) -> tuple[dict[str, np.ndarray], dict]:
+    """The port model `module`'s parameters in the reference state-dict
+    format: (state_dict, report), the JAX `export_state_dict` with the
+    port's parameters as its tree.
+
+    `template` gives the reference keys and each key's shape and dtype
+    (normally the checkpoint the run started from). Keys the importer skips
+    keep their template values ("template_passthrough"); a mapped key takes
+    its parameter, as f32 in the JAX layout, then the reference's
+    ("exported"); a key whose parameter the model lacks ("missing_params")
+    or whose shape differs ("shape_mismatch") keeps the template's value,
+    and with `strict` either raises."""
+    params = dict(module.named_parameters())
+    out: dict[str, np.ndarray] = {}
+    report = {"exported": [], "template_passthrough": [], "missing_params": [], "shape_mismatch": []}
+    for key, tarr in template.items():
+        tarr = tarr.detach().cpu().numpy() if torch.is_tensor(tarr) else np.asarray(tarr)
+        jax_key = map_reference_key(key, unet_cfg)
+        if jax_key is None:
+            out[key] = tarr
+            report["template_passthrough"].append(key)
+            continue
+        jax_key, needs_transform = _leaf_name(jax_key, tarr.ndim)
+        name = jax_to_torch_name(jax_key)
+        if name not in params:
+            out[key] = tarr
+            report["missing_params"].append((key, jax_key))
+            continue
+        value = _to_jax_layout(jax_key, params[name].detach().float().cpu().numpy())
+        if needs_transform and jax_key.endswith("kernel"):
+            value = _inverse_transform(value, tarr.ndim)
+        if tuple(value.shape) != tuple(tarr.shape):
+            report["shape_mismatch"].append((key, jax_key, value.shape, tuple(tarr.shape)))
+            out[key] = tarr
+            continue
+        out[key] = value.astype(tarr.dtype)
+        report["exported"].append((key, jax_key))
+    if strict and (report["missing_params"] or report["shape_mismatch"]):
+        raise ValueError(
+            f"strict export failed: {len(report['missing_params'])} params missing, "
+            f"{len(report['shape_mismatch'])} shape mismatches; first: "
+            f"{(report['missing_params'] or report['shape_mismatch'])[:5]}"
+        )
+    return out, report
+
+
+def save_torch_checkpoint(path: str, state_dict: dict[str, np.ndarray]) -> None:
+    """Write a Lightning-compatible `{'state_dict': ...}` .pt file."""
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state_dict.items()}}, path)

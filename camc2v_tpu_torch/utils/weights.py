@@ -167,7 +167,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     Dense/Conv weights ~ N(0, 1/fan_in) (lecun normal, untruncated)
     and zero biases; norms at identity; embeddings N(0, 0.02), positional
     N(0, 0.01), resampler and adaptor latents N(0, dim^-1/2), epipolar
-    register tokens N(0, 1) (the JAX init). Unlike a fresh JAX init
+    register tokens N(0, 1), relative-position tables Glorot-uniform (the
+    JAX init). Unlike a fresh JAX init
     no projection is zero, so every branch is live (what a trained
     checkpoint looks like, and what `perturb_zero_kernels` does in tests)."""
     for name, p in module.named_parameters():
@@ -183,6 +184,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, p.shape[-1] ** -0.5, generator=generator)
         elif leaf == "register_tokens":
             p.normal_(0.0, 1.0, generator=generator)
+        elif leaf == "embeddings_table":
+            bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+            p.uniform_(-bound, bound, generator=generator)
     for m in module.modules():
         if isinstance(m, (Dense, Conv)) and m.bias is not None:
             m.bias.zero_()

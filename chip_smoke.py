@@ -279,6 +279,52 @@ Phases, each printing its lines; any failure raises and exits non-zero:
               `--camera` must raise RuntimeError. (c) the counts zeroed
               before the phase: no kernel may launch in it
               (`launches_evaluate` in the kernels line).
+ 14. variants the model options the shipped yamls leave off, at full width,
+              seeded bf16 weights (`variants_phase`; the counts zeroed
+              before the phase and read after it: `launches_variants` in the
+              kernels line). (a) CamContextI2V-256 from the flagship yaml
+              with `epipolar_hybrid_attention` set by a dotlist
+              (`config_yaml.build_model_from_config`); the epipolar
+              variants share its parameter tree, so each variant's
+              `EpipolarConfig` is set on it in turn (`_epipolar_variant`):
+              both hybrid fallbacks, `only_self_pixel_on_current_frame`,
+              `current_frame_as_register_token`, `only_on_cond_frame`,
+              `is_3d_full_attn`. For each, one batch-1 guided evaluation
+              (CFG 7.5, its two UNet calls) on the variant's camera payload
+              (the conditioning of the hybrid model: the same-frame variants
+              cannot build the adaptor's T x (1 + N) mask, in JAX either):
+              each UNet call against `ops.plain_twins()` within 5e-2
+              relative L2; K2 launched by every epipolar site (counted by
+              wrapping the Epipolar module's attention seam), K6 silent;
+              the guided evaluation timed (CUDA events), and for the hybrid
+              variant one UNet call with the request's prepared masks
+              (`prepare_masked_epipolar`) beside one that pads the masks
+              and builds K2's tile maps at each site. (b) two requests of
+              the hybrid model (25-step DDIM, CFG 7.5; batch 1 and 2):
+              s/video, the conditioning / UNet / decode split, peak GiB,
+              launches per kernel. (c) DynamiCrafter-256 (the preset's
+              config) with `use_causal_attention`, `use_relative_position`,
+              `temporal_selfatt_only: false` and `resblock_updown`, each
+              alone, and CamContextI2V-256 from the yaml under
+              `multi_cond_strategy` avg and max and cross-normalisation in
+              both modes: `prepare_batch` and one batch-1 guided evaluation
+              each, every UNet call against the twins within 5e-2. (d) the
+              flagship yaml's training recipe: one batch-2 micro-step
+              (`trainer.loss_and_grads`' body, dropout on, block remat on)
+              under each remat policy (`CAMC2V_REMAT_POLICY`): ms of device
+              time (CUDA events) and wall time, peak GiB, the forward
+              kernels' launches during the backward (0 for K2 and K6 under
+              `pallas` and `dots_pallas`, > 0 under `none`), the trainable
+              gradients against `none`'s (bit-identical, else relative L2
+              <= 1e-2; `none` run twice says whether the step is
+              deterministic), after a warm-up step; device time by the
+              profiler over one more step each (the events include the
+              host's gaps). (e) one batch-1 micro-step of the hybrid
+              model's training (ResBlock dropout off): gradients with the
+              kernels against the twins within 5e-2, K5 launched on the
+              dense (1, 16384, 4 + 16384) masks of the ds8 level (recorded
+              by wrapping K5's wrapper); then one optimizer step of
+              `Trainer.fit` on it (dropout on), K5 launched, losses finite.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -913,13 +959,13 @@ def flash_site_checks(model, dev) -> dict:
     seen, masks = {}, {}
     real = fa._launch_fwd
 
-    def spy(q, k, v, mask, scale, *, want_lse):
+    def spy(q, k, v, mask, scale, *, want_lse, tiles=None):
         key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3], mask is not None)
         seen[key] = seen.get(key, 0) + 1
         if mask is not None and key not in masks:
             masks[key] = (mask.clone(), scale)
         masks.setdefault(key, (None, scale))
-        return real(q, k, v, mask, scale, want_lse=want_lse)
+        return real(q, k, v, mask, scale, want_lse=want_lse, tiles=tiles)
 
     x, t, ctx, fs, camera = _unet_call_inputs(model, dev)
     fa._launch_fwd = spy
@@ -3224,6 +3270,416 @@ def evaluation_phase(dev, device_line: str, trees: dict) -> dict:
 # kernel, policy and padded head dim (D <= 64, <= 128): K2/K5 under BoolMask
 # and K6/K7 under LineMask as recorded in PERF.md; a policy's hooks must not
 # move them
+HYBRID = ["model.params.epipolar_config.epipolar_hybrid_attention=true"]
+EPI_VARIANTS = {
+    "epipolar_hybrid_attention": dict(epipolar_hybrid_attention=True),
+    "epipolar_hybrid_attention_v2": dict(epipolar_hybrid_attention_v2=True),
+    "only_self_pixel_on_current_frame": dict(only_self_pixel_on_current_frame=True),
+    "current_frame_as_register_token": dict(current_frame_as_register_token=True),
+    "only_on_cond_frame": dict(only_on_cond_frame=True),
+    "is_3d_full_attn": dict(is_3d_full_attn=True),
+}
+DC_FORMS = {"use_causal_attention": dict(use_causal_attention=True),
+            "use_relative_position": dict(use_relative_position=True),
+            "temporal_selfatt_only_false": dict(temporal_selfatt_only=False),
+            "resblock_updown": dict(resblock_updown=True)}
+CC_FORMS = {"avg": ["model.params.multi_cond_strategy=avg"], "max": ["model.params.multi_cond_strategy=max"],
+            "cross_normalization_spatio_temporal": ["model.params.use_cross_normalization=true"],
+            "cross_normalization_token": ["model.params.use_cross_normalization=true",
+                                          "model.params.cross_normalization_mode=token"]}
+REMAT_POLICIES = ("none", "dots", "dots_batch", "pallas", "dots_pallas")
+FORWARD_KERNELS = ("groupnorm", "flash_attention", "temporal_attention", "geglu_ff", "epipolar_flash",
+                   "epipolar_flash_precomp", "layernorm", "groupnorm_temporal")
+GUIDED = dict(BENCH_RECIPE, camera_cfg=1.0, camera_cfg_scheduler="constant")
+
+
+def _yaml_model(dotlist, dev, *, train: bool = False, seed: int = 4321):
+    """The flagship yaml with `dotlist` (`config_yaml.build_model_from_config`):
+    an inference model (bf16 Dense/Conv weights, eval) or a training one
+    with its recipe's state (`init_train_state`)."""
+    from camc2v_tpu_torch.config_yaml import apply_dotlist, build_model_from_config, build_train_config, load_yaml
+    from camc2v_tpu_torch.parallel import trainer as TR
+    from camc2v_tpu_torch.utils.weights import cast_for_inference
+
+    cfg = apply_dotlist(load_yaml(FLAGSHIP_YAML), dotlist)
+    model, _ = build_model_from_config(cfg, device=dev, seed=seed)
+    if not train:
+        return cast_for_inference(model.eval())
+    tcfg = build_train_config(cfg)
+    return model, tcfg, TR.init_train_state(tcfg, model)
+
+
+@contextlib.contextmanager
+def _epipolar_variant(model, epi):
+    """`epi` as the model's epipolar config (camera_condition's and every
+    Epipolar module's) for the block; the variants share one parameter tree."""
+    import dataclasses
+
+    from camc2v_tpu_torch.nn.epipolar import Epipolar
+
+    mods = [m for m in model.modules() if isinstance(m, Epipolar)]
+    old, olds = model.config, [m.config for m in mods]
+    model.config = dataclasses.replace(old, epipolar=epi)
+    for m in mods:
+        m.config = epi
+    try:
+        yield
+    finally:
+        model.config = old
+        for m, c in zip(mods, olds):
+            m.config = c
+
+
+@contextlib.contextmanager
+def _epipolar_k2():
+    """{"calls", "k2"}: the Epipolar modules' attention-seam calls and the K2
+    launches made inside them."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.nn import epipolar as seam
+
+    seen = {"calls": 0, "k2": 0}
+    real = seam.dot_product_attention
+
+    def counted(q, *a, **k):
+        before = ops.LAUNCHES["flash_attention"]
+        out = real(q, *a, **k)
+        if ops.route(q):  # not the plain twins' comparison run
+            seen["calls"] += 1
+            seen["k2"] += ops.LAUNCHES["flash_attention"] - before
+        return out
+
+    seam.dot_product_attention = counted
+    try:
+        yield seen
+    finally:
+        seam.dot_product_attention = real
+
+
+def _guided_check(model, label: str, cond: dict, uc: dict, fs, x, t) -> dict:
+    """One guided evaluation (CFG 7.5, rescale 0.7) with the kernels and
+    inside `ops.plain_twins()`: each UNet call within 5e-2, the kernels'
+    evaluation timed, its launches."""
+    from camc2v_tpu_torch import ops
+
+    fn = model.build_guided_fn(cond, uc, fs, guidance_scale=GUIDED["guidance_scale"],
+                               guidance_rescale=GUIDED["guidance_rescale"])
+    calls = {"kernels": [], "twins": []}
+    real = model.apply_model
+
+    def recorded(side):
+        def call(*a, **k):
+            out = real(*a, **k)
+            calls[side].append(out)
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    model.apply_model = recorded("kernels")
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        w0 = time.perf_counter()
+        start.record()
+        got = fn(x, t, 500)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        with ops.plain_twins():
+            model.apply_model = recorded("twins")
+            fn(x, t, 500)
+    finally:
+        del model.apply_model
+    for i, (a, b) in enumerate(zip(calls["kernels"], calls["twins"])):
+        _rel_check(f"{label}: guided evaluation UNet call {i}", a, b)
+    if not calls["kernels"] or len(calls["kernels"]) != len(calls["twins"]) or not torch.isfinite(got).all():
+        _fail(f"{label}: the guided evaluation ran no UNet call or is not finite")
+    ms = start.elapsed_time(end)
+    print(f"  {label}: guided evaluation, {len(calls['kernels'])} UNet calls, {ms:.2f} ms (events), "
+          f"{wall:.2f} ms wall; launches {launches}", flush=True)
+    return dict(guided_ms=ms, guided_wall_ms=wall, unet_calls=len(calls["kernels"]), launches=launches)
+
+
+def _request_inputs(model, batch, dev, seed: int, **prepare):
+    """(cond, uc, fs, x, t) of a batch's guided evaluation at t = 500."""
+    z, cond = model.prepare_batch(batch, prefetch_uncond=True, **prepare)
+    uc = model.build_uncond(cond, z.shape[0], batch["video"].shape[2:4])
+    cond.pop("_uncond")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(z.shape, generator=g, device=dev)
+    return cond, uc, model.get_fs(batch), x, torch.full((z.shape[0],), 500, device=dev)
+
+
+def _epipolar_variants(model, dev, device_line: str) -> dict:
+    """Phase 14 (a)."""
+    import dataclasses
+
+    from camc2v_tpu_torch import ops
+
+    out = {}
+    batch = camcontext_batch(model, 1, 61, dev)
+    base = dataclasses.replace(model.config.epipolar, epipolar_hybrid_attention=False)
+    with torch.no_grad():
+        cond, uc, fs, x, t = _request_inputs(model, batch, dev, 62)
+        idx = cond["c_cond_frame_index"]
+        for name, kw in EPI_VARIANTS.items():
+            epi = dataclasses.replace(base, **kw)
+            with _epipolar_variant(model, epi), _epipolar_k2() as k2:
+                torch.cuda.synchronize()
+                p0 = time.perf_counter()
+                cam = model.camera_condition(batch, idx)
+                torch.cuda.synchronize()
+                payload_ms = (time.perf_counter() - p0) * 1e3
+                res = _guided_check(model, f"(a) {name}", dict(cond, camera=cam), dict(uc, camera=cam), fs, x, t)
+                k2_calls, k2_launches = k2["calls"], k2["k2"]
+                if name == "epipolar_hybrid_attention":
+                    res.update(_prepared_mask_times(model, cond, cam, fs, x, t))
+            print(f"  (a) {name}: payload {payload_ms:.1f} ms ({sorted(cam)}), epipolar sites' seam calls "
+                  f"{k2_calls}, K2 launches in them {k2_launches}, K6 launches {res['launches']['epipolar_flash']} "
+                  f"[{device_line}]", flush=True)
+            if k2_calls == 0 or k2_launches != k2_calls or res["launches"]["epipolar_flash"] != 0:
+                _fail(f"phase 14 (a) {name}: the epipolar sites did not all run on K2 ({k2_launches} launches in "
+                      f"{k2_calls} calls) or K6 ran ({res['launches']['epipolar_flash']})")
+            out[name] = dict(res, payload_ms=payload_ms, epipolar_seam_calls=k2_calls, epipolar_k2=k2_launches)
+            del cam
+            torch.cuda.empty_cache()
+    return out
+
+
+def _prepared_mask_times(model, cond, cam, fs, x, t) -> dict:
+    """One conditional UNet call with the request's prepared masks
+    (`epi_prep`: K2's padded masks and tile maps built once) beside one that
+    builds them at every epipolar site, CUDA events and host wall."""
+    from camc2v_tpu_torch.nn.epipolar import prepare_masked_epipolar
+
+    torch.cuda.synchronize()
+    p0 = time.perf_counter()
+    prepare_masked_epipolar(cam["masks"], model.config.epipolar, cond["c_cond_frame_index"])
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - p0) * 1e3
+    per_call = {k: v for k, v in cam.items() if k != "epi_prep"}
+    times = {}
+    for label, camera in (("prepared", cam), ("per_call", per_call), ("prepared_again", cam)):
+        c = dict(cond, camera=camera)
+        call = lambda: model.apply_model(x, t, c, fs)  # noqa: E731
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        ms = _time_ms(call, reps=3)
+        times[label] = (ms, (time.perf_counter() - w0) * 1e3 / 4, _profiled_ms(call, reps=2))
+    print(f"  (a) hybrid: one UNet call with the request's prepared masks {_fmt(times['prepared'][2])} / "
+          f"{_fmt(times['prepared_again'][2])} of device time (profiler), building them at each site "
+          f"{_fmt(times['per_call'][2])}; events {times['prepared'][0]:.2f} / {times['per_call'][0]:.2f} ms, wall "
+          f"{times['prepared'][1]:.2f} / {times['per_call'][1]:.2f} ms (host-bound); the request's preparation "
+          f"{prep_ms:.2f} ms once", flush=True)
+    return dict(unet_call_prepared_ms=times["prepared"][0], unet_call_per_call_masks_ms=times["per_call"][0],
+                unet_call_prepared_device_ms=times["prepared"][2],
+                unet_call_prepared_again_device_ms=times["prepared_again"][2],
+                unet_call_per_call_masks_device_ms=times["per_call"][2], mask_preparation_ms=prep_ms)
+
+
+def _model_forms(dev, device_line: str) -> dict:
+    """Phase 14 (c)."""
+    import dataclasses
+
+    from camc2v_tpu_torch import presets
+    from camc2v_tpu_torch.models.dynamicrafter import DynamiCrafter
+    from camc2v_tpu_torch.utils.weights import cast_for_inference
+
+    out = {}
+    base = presets.dynamicrafter_256()
+    for name, kw in DC_FORMS.items():
+        config = dataclasses.replace(base, unet=dataclasses.replace(base.unet, **kw))
+        model = cast_for_inference(presets.seeded_model(config, DynamiCrafter, dev, 1234, torch.bfloat16).eval())
+        g = torch.Generator(device=dev).manual_seed(71)
+        batch = {"video": torch.rand(1, 16, 256, 256, 3, generator=g, device=dev) * 2 - 1,
+                 "caption_tokens": torch.randint(0, config.clip_text.vocab_size, (1, 77), generator=g, device=dev),
+                 "frame_stride": torch.full((1,), 3, dtype=torch.int32, device=dev)}
+        with torch.no_grad():
+            out[f"dynamicrafter_{name}"] = _guided_check(model, f"(c) DynamiCrafter-256 {name}",
+                                                         *_request_inputs(model, batch, dev, 72))
+        del model
+        torch.cuda.empty_cache()
+    for name, dotlist in CC_FORMS.items():
+        model = _yaml_model(dotlist, dev)
+        batch = camcontext_batch(model, 1, 73, dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            p0 = time.perf_counter()
+            inputs = _request_inputs(model, batch, dev, 74)
+            torch.cuda.synchronize()
+            prep_ms = (time.perf_counter() - p0) * 1e3
+            res = _guided_check(model, f"(c) CamContextI2V-256 {name}", *inputs)
+        print(f"  (c) CamContextI2V-256 {name}: prepare_batch {prep_ms:.1f} ms, c_concat "
+              f"{tuple(inputs[0]['c_concat'].shape)}, c_crossattn {tuple(inputs[0]['c_crossattn'].shape)}",
+              flush=True)
+        out[f"camcontexti2v_{name}"] = dict(res, prepare_ms=prep_ms)
+        del model, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _micro_step(model, state, batch, seed: int) -> dict:
+    """One micro-step (`trainer.loss_and_grads`' body, dropout on): the
+    trainable gradients, device ms (events) and wall ms, peak GiB and the
+    forward kernels' launches during the backward."""
+    from camc2v_tpu_torch import ops
+
+    device = state.params[0].device
+    generator = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    start.record()
+    with torch.random.fork_rng(devices=[device]):
+        torch.manual_seed(seed)
+        loss, _ = model.training_loss(batch, generator)
+        before = dict(ops.LAUNCHES)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+    end.record()
+    torch.cuda.synchronize()
+    backward = {k: ops.LAUNCHES[k] - before[k] for k in FORWARD_KERNELS + ("flash_bwd", "epipolar_bwd")}
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).flatten() for g, p in zip(grads, state.params)])
+    return dict(loss=loss.item(), grads=flat, ms=start.elapsed_time(end), wall_ms=(time.perf_counter() - w0) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, backward_launches=backward)
+
+
+def _remat_policies(dev, device_line: str) -> dict:
+    """Phase 14 (d)."""
+    model, _, state = _yaml_model([], dev, train=True)
+    batch = camcontext_batch(model, 2, 81, dev)
+    runs, out = {}, {}
+    old = os.environ.get("CAMC2V_REMAT_POLICY")
+    try:
+        for policy in ("warm-up",) + REMAT_POLICIES + ("none_again",):
+            os.environ["CAMC2V_REMAT_POLICY"] = policy if policy in REMAT_POLICIES else "none"
+            r = _micro_step(model, state, batch, 82)
+            if policy != "warm-up":
+                r["device_ms"] = _profiled_ms(lambda: _micro_step(model, state, batch, 82), reps=1)
+            runs[policy] = r
+    finally:
+        if old is None:
+            os.environ.pop("CAMC2V_REMAT_POLICY", None)
+        else:
+            os.environ["CAMC2V_REMAT_POLICY"] = old
+    ref = runs["none"]["grads"]
+    deterministic = torch.equal(runs["none_again"]["grads"], ref)
+    for key, r in runs.items():
+        g = r.pop("grads")
+        same = torch.equal(g, ref)
+        rel = ((g - ref).norm() / ref.norm()).item()
+        fwd_in_bwd = {k: r["backward_launches"][k] for k in FORWARD_KERNELS if r["backward_launches"][k]}
+        if key == "warm-up":
+            continue
+        print(f"  (d) remat {key}: micro-step batch 2 {_fmt(r['device_ms'])} of device time (profiler), "
+              f"{r['ms']:.1f} ms (events), {r['wall_ms']:.1f} ms wall, peak "
+              f"{r['peak_gib']:.2f} GiB, loss {r['loss']:.6f}; forward kernels launched in the backward "
+              f"{fwd_in_bwd}; backward kernels {r['backward_launches']['flash_bwd']} K5 / "
+              f"{r['backward_launches']['epipolar_bwd']} K7; gradients vs none: bit-identical {same}, rel_l2 "
+              f"{rel:.3e} [{device_line}]", flush=True)
+        bwd = r["backward_launches"]
+        if "pallas" in key and (bwd["flash_attention"] or bwd["epipolar_flash"]):
+            _fail(f"phase 14 (d) {key}: K2 / K6 forward re-ran in the backward: {fwd_in_bwd}")
+        if key.startswith("none") and not (bwd["flash_attention"] and bwd["epipolar_flash"]):
+            _fail(f"phase 14 (d) {key}: the backward re-ran no K2 / K6 forward: {fwd_in_bwd}")
+        if not (same or rel <= 1e-2) or not np.isfinite(r["loss"]):
+            _fail(f"phase 14 (d) {key}: gradients {rel:.3e} from none's")
+        out[key] = dict(r, bit_identical_to_none=same, rel_l2_to_none=rel)
+    print(f"  (d) none twice bit-identical (a deterministic step): {deterministic}", flush=True)
+    out["deterministic"] = deterministic
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _masked_backward(dev, device_line: str) -> dict:
+    """Phase 14 (e)."""
+    from camc2v_tpu_torch import ops
+    from camc2v_tpu_torch.main.harness import Trainer
+    from camc2v_tpu_torch.ops import flash_attention as fa
+
+    model, tcfg, state = _yaml_model(HYBRID, dev, train=True)
+    batch = camcontext_batch(model, 1, 91, dev)  # batch 1: the plain twin's dense ds8 logits are 5.4 GB a sample
+    shapes = []
+    real = fa.flash_bwd
+
+    def recorded(q, k, v, mask, *a, **kw):
+        shapes.append(None if mask is None else tuple(mask.shape))
+        return real(q, k, v, mask, *a, **kw)
+
+    fa.flash_bwd = recorded
+    try:
+        with _DropoutOff(model):
+            r = _micro_step(model, state, batch, 92)
+            with ops.plain_twins():
+                p = _micro_step(model, state, batch, 92)
+    finally:
+        fa.flash_bwd = real
+    rel = ((r["grads"] - p["grads"]).norm() / p["grads"].norm()).item()
+    ds8 = [s for s in shapes if s is not None and s[-1] == model.config.epipolar.num_register_tokens + 16 * 1024]
+    print(f"  (e) hybrid training micro-step batch 1: {r['ms']:.1f} ms (events), peak {r['peak_gib']:.2f} GiB, "
+          f"gradients kernels vs twins rel_l2={rel:.3e} tol=5e-2; K5 calls {len(shapes)}, {len(ds8)} on the ds8 "
+          f"masks {sorted(set(ds8))}; backward launches {r['backward_launches']} [{device_line}]", flush=True)
+    if not ds8 or not (torch.isfinite(r["grads"]).all() and rel <= 5e-2):
+        _fail("phase 14 (e): K5 did not run on the dense ds8 masks, or the gradients disagree with the twins")
+    # the entry point: one optimizer step of Trainer.fit (dropout on) over the accumulation's micro-steps
+    before = dict(ops.LAUNCHES)
+    w0 = time.perf_counter()
+    steps = tcfg.accumulate_grad_batches
+    trainer = Trainer(model, tcfg, (camcontext_batch(model, 1, 93 + i, dev) for i in range(steps)), seed=0,
+                      log_every_n_steps=1)
+    state = trainer.fit(state, max_steps=state.step + steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - w0
+    k5 = ops.LAUNCHES["flash_bwd"] - before["flash_bwd"]
+    losses = [h["loss"] for h in trainer.history]
+    print(f"  (e) Trainer.fit on the hybrid model: {steps} micro-steps, {state.updates} optimizer step, {fit_s:.2f} s, "
+          f"losses {[round(x, 5) for x in losses]}, K5 launches {k5}", flush=True)
+    if state.updates != 1 or not k5 or len(losses) != steps or not np.isfinite(losses).all():
+        _fail("phase 14 (e): Trainer.fit on the hybrid model did not take its optimizer step on K5")
+    del model, state, batch, trainer
+    torch.cuda.empty_cache()
+    return dict(ms=r["ms"], wall_ms=r["wall_ms"], peak_gib=r["peak_gib"], rel_l2=rel, k5_calls=len(shapes),
+                k5_ds8_masked=len(ds8), backward_launches=r["backward_launches"], fit_s=fit_s, fit_losses=losses)
+
+
+def variants_phase(dev, device_line: str) -> dict:
+    """Phase 14: the model options the shipped yamls leave off (see the
+    module docstring)."""
+    from camc2v_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    total = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def fold():
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        ops.reset_launch_counts()
+
+    model = _yaml_model(HYBRID, dev)
+    variants = _epipolar_variants(model, dev, device_line)
+    fold()
+    ops.reset_launch_counts()
+    requests = generate(model, lambda b, seed: camcontext_batch(model, b, seed, dev), "camcontexti2v hybrid",
+                        device_line, plan=((1, 11, BENCH_RECIPE), (2, 22, BENCH_RECIPE)))
+    request_launches = dict(ops.LAUNCHES)
+    print(f"  (b) hybrid requests' launches {request_launches}", flush=True)
+    if not request_launches["flash_attention"] or request_launches["epipolar_flash"]:
+        _fail(f"phase 14 (b): the hybrid requests ran K6 or no K2: {request_launches}")
+    fold()
+    del model
+    torch.cuda.empty_cache()
+    forms = _model_forms(dev, device_line)
+    fold()
+    remat = _remat_policies(dev, device_line)
+    fold()
+    backward = _masked_backward(dev, device_line)
+    fold()
+    print(f"[14 launches] {total}", flush=True)
+    return dict(epipolar_variants=variants, hybrid_requests=requests, hybrid_request_launches=request_launches,
+                model_forms=forms, remat=remat, masked_backward=backward, launches=total)
+
+
 CORE_REGISTERS = {("flash_fwd_kernel", "BoolMask"): (94, 134), ("flash_bwd_dq_kernel", "BoolMask"): (138, 170),
                   ("flash_bwd_dkv_kernel", "BoolMask"): (168, 197), ("flash_fwd_kernel", "LineMask"): (95, 150),
                   ("flash_bwd_dq_kernel", "LineMask"): (138, 168), ("flash_bwd_dkv_kernel", "LineMask"): (163, 200)}
@@ -3386,6 +3842,12 @@ def main() -> None:
         trees["cli_02_mp4"] = os.path.join(ENTRY_DIR, "generation_mp4")
     evaluation = evaluation_phase(dev, device_line, trees)
 
+    print("[14 variants] the model options the shipped yamls leave off: the epipolar variants on K2/K5's masked "
+          "route, hybrid requests, the temporal-attention forms, resblock_updown, the context strategies and "
+          "cross-normalisation, the remat policies", flush=True)
+    with _switches("0"):
+        variants = variants_phase(dev, device_line)
+
     first = train_run["vae_batch_layers"]["first_differing"]
     if first is not None and first["kind"].startswith("GroupNorm"):
         _fail(f"the VAE's batch dependence starts at a GroupNorm ({first})")
@@ -3394,7 +3856,7 @@ def main() -> None:
         json.dump(dict(device=device_line, requests=requests, unet_step=step, launches_dynamicrafter=dc_launches,
                        launches_camcontexti2v=cc_launches, train=train, routes=routes, train_run=train_run,
                        generation_02=gen02, entry_points=entry, baselines=baselines, evaluation=evaluation,
-                       kernels=checks), f, indent=1,
+                       variants=variants, kernels=checks), f, indent=1,
                   default=str)
     sources = {
         "groupnorm": ("camc2v_tpu_torch/csrc/groupnorm.cu", "camc2v_tpu/ops/groupnorm.py:31"),
@@ -3425,7 +3887,7 @@ def main() -> None:
              launches_train_run=train_run["launches"][name], launches_generation_02=gen02["launches"][name],
              launches_cli_02=entry["cli_02"]["launches"][name], launches_demo_04=entry["demo_04"]["launches"][name],
              launches_baselines=baselines["launches"][name], launches_evaluate=evaluation["launches"][name],
-             **{k: checks[name][k] for k in keys})
+             launches_variants=variants["launches"][name], **{k: checks[name][k] for k in keys})
         for name, (src, rep) in sources.items()
     ]
     kernels[-1]["launches_phase3"] = checks["phase3_launches"]["groupnorm_big"]

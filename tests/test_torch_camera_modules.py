@@ -30,6 +30,7 @@ import torch
 
 sys.path.append(str(Path(__file__).parent / "oracle"))
 
+from refload import my_model  # noqa: E402
 from test_torch_port_modules import _normal, assert_close, flat, jax_params, jit_o0, run_both  # noqa: E402
 
 from camc2v_tpu.camera import geometry as JG  # noqa: E402
@@ -191,19 +192,23 @@ def test_build_raises_without_cuda_and_matches_hand_built(monkeypatch):
 
 
 def test_unported_variants_raise():
+    """What raises in the JAX package raises in the port, and nothing else:
+    the 'pose_agent_enc' strategy (a stub in the reference) on both sides (the
+    soft epipolar masks: `test_torch_variants_masks.py`); a baseline's camera
+    injection on an epipolar UNet is refused; the other options build."""
+    from camc2v_tpu.models.camcontexti2v import CamContextI2V as JCamContextI2V
     from camc2v_tpu_torch.models.camcontexti2v import CamContextI2V
     from camc2v_tpu_torch.nn.epipolar import Epipolar
 
-    with pytest.raises(NotImplementedError, match="plain"):
-        Epipolar(pc.EpipolarConfig(epipolar_hybrid_attention=True), 64, 2)
     cfg = tiny_camcontext_config()
+    jcfg = my_model("camcontext").config
+    with pytest.raises(NotImplementedError, match="pose_agent_enc"):
+        JCamContextI2V(dataclasses.replace(jcfg, multi_cond_strategy="pose_agent_enc"))
+    with pytest.raises(NotImplementedError, match="pose_agent_enc"):
+        CamContextI2V(dataclasses.replace(cfg, multi_cond_strategy="pose_agent_enc"))
     with pytest.raises(ValueError, match="camera_mode"):  # a baseline's injection on an epipolar UNet
         CamContextI2V(dataclasses.replace(cfg, unet=dataclasses.replace(cfg.unet, camera_mode="motionctrl")))
-    with pytest.raises(NotImplementedError, match="cross-normalisation"):
-        CamContextI2V(dataclasses.replace(cfg, use_cross_normalization=True))
-    with pytest.raises(NotImplementedError, match="Plücker input"):  # camera CFG is ported
-        CamContextI2V(dataclasses.replace(cfg, adaptor=dataclasses.replace(cfg.adaptor, use_plucker_embedding=True)))
-    with pytest.raises(NotImplementedError, match="multi_cond_strategy"):  # padded contexts are ported
-        CamContextI2V(dataclasses.replace(cfg, multi_cond_strategy="max"))
-
-
+    Epipolar(pc.EpipolarConfig(epipolar_hybrid_attention=True), 64, 2)
+    for kw in (dict(use_cross_normalization=True), dict(multi_cond_strategy="max"),
+               dict(adaptor=dataclasses.replace(cfg.adaptor, use_plucker_embedding=True))):
+        CamContextI2V(dataclasses.replace(cfg, **kw))

@@ -140,7 +140,7 @@ def test_resize_matches_jax():
             return b.mean(dim=(1, 2, 3))
 
     seen = []
-    scorer = P.FVDScorer(None)
+    scorer = P.FVDScorer(None, device="cpu")
     scorer.model = Spy()
     scorer.extract_features(np.zeros((9, 2, 256, 256, 3), np.float32))
     scorer.extract_features(np.zeros((1, 2, 224, 100, 3), np.float32))

@@ -62,16 +62,16 @@ def test_frame_and_camera_metrics_match_jax():
     for shape, noise in (((5, 32, 32, 3), 30), ((3, 41, 57, 3), 4)):
         gt, gen = _frames(rng, shape, noise)
         want = JVM.video_pair_metrics(gt, gen, with_lpips=False)
-        got = VM.video_pair_metrics(gt, gen, with_lpips=False)
+        got = VM.video_pair_metrics(gt, gen, with_lpips=False, device="cpu")
         assert sorted(got) == sorted(want)
         for k in ("mse", "rmse", "psnr", "ssim"):
             np.testing.assert_allclose(got[k], want[k], rtol=RTOL, err_msg=k)
         np.testing.assert_allclose(got["mse_per_timestep"], want["mse_per_timestep"], rtol=RTOL)
-        np.testing.assert_allclose(VM.ssim(gt[1], gen[1]), JVM.ssim(gt[1], gen[1]), rtol=RTOL)
-        np.testing.assert_allclose(VM.psnr(gt, gen), JVM.psnr(gt, gen), rtol=RTOL)
-        np.testing.assert_allclose(VM.rmse(gt, gen), JVM.rmse(gt, gen), rtol=RTOL)
+        np.testing.assert_allclose(VM.ssim(gt[1], gen[1], device="cpu"), JVM.ssim(gt[1], gen[1]), rtol=RTOL)
+        np.testing.assert_allclose(VM.psnr(gt, gen, device="cpu"), JVM.psnr(gt, gen), rtol=RTOL)
+        np.testing.assert_allclose(VM.rmse(gt, gen, device="cpu"), JVM.rmse(gt, gen), rtol=RTOL)
     # a frame pair that is identical: SSIM 1, PSNR at its 1e-12 floor
-    same = VM.video_pair_metrics(gt, gt, with_lpips=False)
+    same = VM.video_pair_metrics(gt, gt, with_lpips=False, device="cpu")
     assert same["ssim"] == pytest.approx(1.0, rel=RTOL) and same["psnr"] == JVM.psnr(gt, gt)
 
     c1, c2 = _trajectory(np.random.default_rng(1)), _trajectory(np.random.default_rng(2))
@@ -213,4 +213,4 @@ def test_evaluate_cli_matches_jax(tmp_path, monkeypatch, capsys):
     write_i3d_weights(str(tmp_path / "no_params.npz"), {"batch_stats": {}})
     for bad, match in (("bad.npz", "missing 'variables'"), ("no_params.npz", "lacks a 'params'")):
         with pytest.raises(ValueError, match=match):
-            FVDScorer(str(tmp_path / bad))
+            FVDScorer(str(tmp_path / bad), device="cpu")

@@ -8,7 +8,8 @@ port model, a reference key that the importer's forward map sends to it
 (the JAX package's `_inverse_transform`; the UNet's `init_attn` projections
 as the reference's Conv1d(k=1) kernels). With every parameter of a TINY
 CamContextI2V covered, the port's `import_state_dict` is held bit for bit
-to the JAX `import_state_dict` followed by `load_jax_params`.
+to the JAX `import_state_dict` followed by `load_jax_params`, and the
+port's `export_state_dict` bit for bit to the JAX export.
 """
 
 import re
@@ -206,6 +207,42 @@ def test_lax_import_reports_and_strict_raises(tiny):
     start_p = _params(tm)
     assert torch.equal(got["unet.conv_in.bias"], start_p["unet.conv_in.bias"])
     assert not torch.equal(got["unet.conv_in.weight"], start_p["unet.conv_in.weight"])
+
+
+def test_export_equals_the_jax_export(tiny, tmp_path):
+    """The port's `export_state_dict` of a TINY CamContextI2V holding the
+    `source` weights against the JAX `export_state_dict` of the same tree,
+    on a fabricated template (the start weights, bf16 where the reference
+    stores bf16, the importer's skipped keys and a key the model lacks): the
+    same arrays bit for bit, the same reports; strict raises on both;
+    `save_torch_checkpoint` writes the same file contents."""
+    from camc2v_tpu.utils import torch_import as JI
+
+    jm, tm, source, start = tiny
+    unet_cfg = jm.config.unet
+    template = reference_state_dict(start, unet_cfg)
+    bf16_key = reference_key("unet/conv_in/kernel", unet_cfg)
+    template[bf16_key] = torch.from_numpy(template[bf16_key]).to(torch.bfloat16).float().numpy().astype(np.float16)
+    template.update({"betas": np.arange(4.0), "model_ema.decay": np.zeros(())})
+    load_jax_params(tm, flat(source))
+    got, report = PI.export_state_dict(tm, template, unet_cfg)
+    want, jreport = JI.export_state_dict(source, template, unet_cfg)
+    assert got.keys() == want.keys() == template.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert report == jreport and len(report["exported"]) == len(flat(source))
+    assert report["template_passthrough"] == ["betas", "model_ema.decay"]
+    template["model.diffusion_model.no_such_block.weight"] = np.zeros(3, np.float32)
+    for export, tree in ((PI.export_state_dict, tm), (JI.export_state_dict, source)):
+        with pytest.raises(ValueError, match="strict export failed"):
+            export(tree, template, unet_cfg)
+    _, lax = PI.export_state_dict(tm, template, unet_cfg, strict=False)
+    assert lax["missing_params"] == JI.export_state_dict(source, template, unet_cfg, strict=False)[1]["missing_params"]
+    PI.save_torch_checkpoint(str(tmp_path / "port.pt"), got)
+    JI.save_torch_checkpoint(str(tmp_path / "jax.pt"), want)
+    a, b = (torch.load(tmp_path / f, weights_only=True)["state_dict"] for f in ("port.pt", "jax.pt"))
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_train_entry_point_imports_the_pretrained_checkpoint(tmp_path, caplog):

@@ -70,9 +70,9 @@ def test_padded_loss_and_gradients_match_jax(camcontext, monkeypatch):
     masked_with_grad = []
     real_apply = fa._Flash.apply
 
-    def recorded(q, k, v, mask, scale, kernel):
+    def recorded(q, k, v, mask, scale, kernel, tiles):
         masked_with_grad.append(mask is not None and q.requires_grad)
-        return real_apply(q, k, v, mask, scale, kernel)
+        return real_apply(q, k, v, mask, scale, kernel, tiles)
 
     monkeypatch.setattr(fa._Flash, "apply", recorded)
     names = [n for n, _ in tm.named_parameters() if n in {jax_to_torch_name(k) for k in jgrads}]
